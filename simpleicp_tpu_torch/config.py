@@ -1,0 +1,165 @@
+"""Configuration of one ICP registration run.
+
+The same fields, defaults and checks as the JAX package's ``IcpConfig``, so
+that a configuration moves between the two packages unchanged
+(``convert.config_from_dict``). Some fields only choose TPU tiles or guard the
+TPU runtime's watchdog; they change no result there either, and they have no
+effect here (see the field notes below).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class IcpConfig:
+    """Static configuration of one ICP registration run.
+
+    Attributes:
+        correspondences: number of points selected in the fixed cloud as
+            correspondence queries (reference default 1000).
+        neighbors: k of the k-NN neighbourhood of the normal estimate
+            (default 10).
+        min_planarity: minimum planarity to keep a correspondence (0.3).
+        max_overlap_distance: overlap gate radius; ``inf`` disables the gate.
+        min_change: convergence threshold in percent on the change of the
+            mean and the std of the residual distances (default 1.0).
+        max_iterations: maximum ICP iterations (default 100).
+        distance_weights: weight of the point-to-plane residuals; ``None``
+            means 1/std(d)^2 estimated in iteration 0 and frozen.
+        mad_scale: MAD to robust sigma factor (1.4826; 1.0 is the reference
+            Python's raw MAD).
+        solver: "nonlinear" (exact-rotation Gauss-Newton over the six
+            absolute parameters every iteration) or "linearized" (one
+            small-angle increment per iteration).
+        gn_iterations: cap on the inner Gauss-Newton steps of the nonlinear
+            solver; the loop exits earlier at 64*eps relative step.
+        rejection_staging: "python" (planarity first, median/MAD on the
+            survivors) or "joint" (median/MAD on all matches).
+        std_ddof: ddof of the residual std of logging and convergence.
+        query_tile / ref_tile: tile sizes of the JAX package's distance
+            sweeps. No effect in this package: its kernels choose their own
+            blocks, and no result depends on a tile size.
+        use_pallas: chooses the JAX package's Pallas gate kernel on a TPU.
+            No effect in this package.
+        approx_knn: approximate normal k-NN (TPU ``approx_min_k``). Not
+            ported yet; ``icp_register`` refuses it.
+        record_trajectory: per-iteration trajectory buffers. Not ported yet;
+            ``icp_register`` refuses it.
+        gate_method / grid_cell_cap: overlap-gate engine; only read when the
+            gate is on, which is not ported yet.
+        match_method: in-loop matcher. "auto" resolves to "brute" here, as
+            the JAX package resolves it off the TPU without a radius; "grid"
+            is not ported yet.
+        match_radius / match_cell_cap: grid matcher settings (not ported).
+        program_budget_s: TPU watchdog guard of the JAX package. No effect
+            in this package (there is no program watchdog on the GPU).
+        dispatch: "auto" resolves to "monolithic" here; "chunked" is not
+            ported yet.
+        chunk_iterations: iterations per chunk of chunked dispatch (not
+            ported).
+        warm_start / warm_start_points / warm_start_correspondences:
+            coarse-to-fine warm start (not ported; ``warm_start=True`` is
+            refused).
+        convergence_floor_scale: absolute convergence noise floor in units
+            of eps(dtype) * max|Q| (0 disables it).
+        stall_policy: TPU degraded-window policy of chunked dispatch. No
+            effect in this package.
+        gate_collective: collective of the sharded gate (not ported).
+    """
+
+    correspondences: int = 1000
+    neighbors: int = 10
+    min_planarity: float = 0.3
+    max_overlap_distance: float = math.inf
+    min_change: float = 1.0
+    max_iterations: int = 100
+    distance_weights: Optional[float] = 1.0
+    mad_scale: float = 1.4826
+    solver: str = "nonlinear"
+    gn_iterations: int = 24
+    rejection_staging: str = "python"
+    std_ddof: int = 0
+    query_tile: int = 2048
+    ref_tile: int = 0
+    use_pallas: bool = False
+    approx_knn: bool = False
+    record_trajectory: bool = False
+    gate_method: str = "auto"
+    grid_cell_cap: int = 0
+    match_method: str = "auto"
+    match_radius: float = 0.0
+    match_cell_cap: int = 0
+    program_budget_s: float = 30.0
+    dispatch: str = "auto"
+    chunk_iterations: int = 0
+    warm_start: bool = False
+    warm_start_points: int = 1_000_000
+    warm_start_correspondences: int = 1000
+    convergence_floor_scale: float = 32.0
+    stall_policy: str = "warn"
+    gate_collective: str = "ring"
+
+    def __post_init__(self):
+        if self.correspondences < 6:
+            raise ValueError("correspondences must be >= 6")
+        if self.correspondences > 2**22:
+            raise ValueError("correspondences must be <= 2**22 (4194304)")
+        if self.neighbors < 3:
+            raise ValueError("neighbors must be >= 3 to estimate a normal")
+        if not 0.0 <= self.min_planarity < 1.0:
+            raise ValueError("min_planarity must be in [0, 1)")
+        if self.max_iterations < 1:
+            raise ValueError("max_iterations must be >= 1")
+        if self.distance_weights is not None and self.distance_weights <= 0:
+            raise ValueError("distance_weights must be > 0")
+        if self.solver not in ("nonlinear", "linearized"):
+            raise ValueError("solver must be 'nonlinear' or 'linearized'")
+        if self.rejection_staging not in ("python", "joint"):
+            raise ValueError("rejection_staging must be 'python' or 'joint'")
+        if self.std_ddof not in (0, 1):
+            raise ValueError("std_ddof must be 0 or 1")
+        if self.gate_method not in ("auto", "brute", "grid", "dilate"):
+            raise ValueError(
+                "gate_method must be 'auto', 'brute', 'grid' or 'dilate'"
+            )
+        if self.match_method not in ("auto", "brute", "grid"):
+            raise ValueError("match_method must be 'auto', 'brute' or 'grid'")
+        if self.match_radius < 0:
+            raise ValueError("match_radius must be >= 0")
+        if self.program_budget_s < 0:
+            raise ValueError("program_budget_s must be >= 0 (0 disables)")
+        if self.dispatch not in ("auto", "monolithic", "chunked"):
+            raise ValueError(
+                "dispatch must be 'auto', 'monolithic' or 'chunked'"
+            )
+        if self.chunk_iterations < 0:
+            raise ValueError("chunk_iterations must be >= 0 (0 = auto)")
+        if self.warm_start_points < 100:
+            raise ValueError("warm_start_points must be >= 100")
+        if self.warm_start_correspondences < 6:
+            raise ValueError("warm_start_correspondences must be >= 6")
+        if self.stall_policy not in ("warn", "wait"):
+            raise ValueError("stall_policy must be 'warn' or 'wait'")
+        if self.gate_collective not in ("ring", "allgather"):
+            raise ValueError("gate_collective must be 'ring' or 'allgather'")
+        if self.convergence_floor_scale < 0:
+            raise ValueError(
+                "convergence_floor_scale must be >= 0 (0 disables the floor)"
+            )
+        if self.match_method == "grid" and self.match_radius == 0.0 and not (
+            math.isfinite(self.max_overlap_distance)
+            and self.max_overlap_distance > 0
+        ):
+            raise ValueError(
+                "match_method='grid' needs a radius: set match_radius or "
+                "enable the overlap gate (max_overlap_distance)"
+            )
+
+    @property
+    def overlap_enabled(self) -> bool:
+        return math.isfinite(self.max_overlap_distance) and self.max_overlap_distance > 0
+
