@@ -8,13 +8,41 @@ Importing this package imports no JAX and builds nothing: the kernels are
 compiled from ``csrc/`` at their first call on the card.
 """
 
-from .config import IcpConfig
-from .convert import config_from_dict, result_to_numpy
-from .models.icp import IcpResult, icp_register
+__version__ = "0.1.0"
+
+import logging
+
+# Never emit logs unless the application opts in.
+logging.getLogger(__name__).addHandler(logging.NullHandler())
+
+from .config import IcpConfig  # noqa: E402
+from .convert import config_from_dict, result_to_numpy  # noqa: E402
+from .corrpts import CorrPts, CorrPtsException  # noqa: E402
+from .models.icp import (  # noqa: E402
+    ERR_NO_OVERLAP,
+    ERR_OK,
+    ERR_TOO_FEW_CORRESPONDENCES,
+    IcpResult,
+    icp_register,
+)
+from .models.solver import Parameter, RigidBodyParameters  # noqa: E402
+from .api import PointCloud, PointCloudException, SimpleICP, SimpleICPException  # noqa: E402
 
 __all__ = [
+    "CorrPts",
+    "CorrPtsException",
+    "ERR_NO_OVERLAP",
+    "ERR_OK",
+    "ERR_TOO_FEW_CORRESPONDENCES",
     "IcpConfig",
     "IcpResult",
+    "Parameter",
+    "PointCloud",
+    "PointCloudException",
+    "RigidBodyParameters",
+    "SimpleICP",
+    "SimpleICPException",
+    "__version__",
     "config_from_dict",
     "icp_register",
     "result_to_numpy",

@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
+
+# The six rigid-body parameters, in the order of the parameter vector.
+RBP_NAMES: Tuple[str, ...] = ("alpha1", "alpha2", "alpha3", "tx", "ty", "tz")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +50,15 @@ class IcpConfig:
             No effect in this package.
         approx_knn: approximate normal k-NN (TPU ``approx_min_k``). Not
             ported yet; ``icp_register`` refuses it.
-        record_trajectory: per-iteration trajectory buffers. Not ported yet;
-            ``icp_register`` refuses it.
-        gate_method / grid_cell_cap: overlap-gate engine; only read when the
-            gate is on, which is not ported yet.
-        match_method: in-loop matcher. "auto" resolves to "brute" here, as
-            the JAX package resolves it off the TPU without a radius; "grid"
-            is not ported yet.
+        record_trajectory: per-iteration trajectory buffers (max_iterations
+            slots instead of one).
+        gate_method / grid_cell_cap: overlap-gate engine, read when the gate
+            is on. "brute" is the 1-NN gate; "auto" resolves to it up to
+            2^40 fixed x movable pairs, as in the JAX package. "grid",
+            "dilate" and "auto" above 2^40 are not ported yet and raise.
+        match_method: in-loop matcher. "auto" resolves as in the JAX
+            package: "brute", or "grid" above 2^38 pairs per iteration when
+            a radius is available; "grid" is not ported yet and raises.
         match_radius / match_cell_cap: grid matcher settings (not ported).
         program_budget_s: TPU watchdog guard of the JAX package. No effect
             in this package (there is no program watchdog on the GPU).

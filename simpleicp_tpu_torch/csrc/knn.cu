@@ -35,7 +35,25 @@
 //   merges the k x n_chunks candidates of each query; every chunk's list is
 //   sorted, so a chunk is left at its first candidate that does not enter.
 //
-// Both: every multiply, add and subtract of the transform and the distance
+// nn_search
+//   Replaces the TPU kernel _nn_kernel (simpleicp_tpu/ops/knn_pallas.py):
+//   the masked 1-NN of the brute overlap gate, first minimum. Every fixed
+//   point is a query (1e5 to 1e6 of them) against the movable cloud.
+//   Bound: operations, 8 flops per pair; at 100 000 x 100 000 that is
+//   8e10 flops, about 1.19 ms at 67 TFLOP/s float32 (2.35 ms at 34 TFLOP/s
+//   float64), against 2.4 MB of input; at 1e6 x 1e6 about 119 ms.
+//   Design: the scan of match_transform without the transform and with the
+//   mask. One thread per query and the block's reference tile in shared
+//   memory: at 1e6 queries that alone is 3 907 blocks, several waves on the
+//   132 SMs; at 1e5 (391 blocks) the reference axis is split into chunks as
+//   for the other kernels, and the same second pass reduces them in
+//   ascending order with a strict '<'. A masked ref enters the tile with
+//   +inf coordinates, so its d2 is +inf (or NaN) and never passes the strict
+//   '<' against a best that starts at +inf: a query with no valid ref keeps
+//   d2 = +inf and index 0, as the plain version's argmin over an all-inf row
+//   gives. The mask is read as bytes (a torch.bool tensor).
+//
+// All: every multiply, add and subtract of the transform and the distance
 // is an explicit round-to-nearest intrinsic (__fmul_rn / __fadd_rn /
 // __fsub_rn, __dmul_rn / __dadd_rn / __dsub_rn), which nvcc never contracts
 // into an FMA. The kernels thus round exactly as the plain PyTorch version's
@@ -144,10 +162,14 @@ match_transform_scan(const T* __restrict__ q, int nq, const T* __restrict__ x,
   }
 }
 
+// The first minimum over the per-chunk partials of one query, in ascending
+// chunk order with a strict '<'.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-nn_reduce(const T* __restrict__ part_d, const int* __restrict__ part_i,
-          int nq, int n_chunks, T* __restrict__ out_d, int* __restrict__ out_i) {
+__device__ __forceinline__ void reduce_chunks(const T* __restrict__ part_d,
+                                              const int* __restrict__ part_i,
+                                              int nq, int n_chunks,
+                                              T* __restrict__ out_d,
+                                              int* __restrict__ out_i) {
   const int qi = blockIdx.x * kThreads + threadIdx.x;
   if (qi >= nq) return;
   T best = Rn<T>::inf();
@@ -161,6 +183,72 @@ nn_reduce(const T* __restrict__ part_d, const int* __restrict__ part_i,
   }
   out_d[qi] = best;
   out_i[qi] = best_i;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+nn_reduce(const T* __restrict__ part_d, const int* __restrict__ part_i,
+          int nq, int n_chunks, T* __restrict__ out_d, int* __restrict__ out_i) {
+  reduce_chunks(part_d, part_i, nq, n_chunks, out_d, out_i);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+nn_search_scan(const T* __restrict__ q, int nq, const T* __restrict__ r, int n,
+               const uint8_t* __restrict__ mask, int chunk_len,
+               T* __restrict__ part_d, int* __restrict__ part_i) {
+  __shared__ T sx[kTile];
+  __shared__ T sy[kTile];
+  __shared__ T sz[kTile];
+
+  const int qi = blockIdx.y * kThreads + threadIdx.x;
+  T qx = 0, qy = 0, qz = 0;
+  if (qi < nq) {
+    qx = q[3 * (size_t)qi];
+    qy = q[3 * (size_t)qi + 1];
+    qz = q[3 * (size_t)qi + 2];
+  }
+  T best = Rn<T>::inf();
+  int best_i = 0;
+  const int lo = blockIdx.x * chunk_len;
+  const int hi = min(n, lo + chunk_len);
+  for (int base = lo; base < hi; base += kTile) {
+    const int cnt = min(kTile, hi - base);
+    __syncthreads();  // the previous tile is no longer read
+    for (int j = threadIdx.x; j < cnt; j += kThreads) {
+      if (mask == nullptr || mask[base + j]) {
+        const T* p = r + 3 * (size_t)(base + j);
+        sx[j] = p[0];
+        sy[j] = p[1];
+        sz[j] = p[2];
+      } else {
+        sx[j] = Rn<T>::inf();
+        sy[j] = Rn<T>::inf();
+        sz[j] = Rn<T>::inf();
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < cnt; ++j) {
+      const T d = dist2(qx, qy, qz, sx[j], sy[j], sz[j]);
+      if (d < best) {
+        best = d;
+        best_i = base + j;
+      }
+    }
+  }
+  if (qi < nq) {
+    part_d[(size_t)blockIdx.x * nq + qi] = best;
+    part_i[(size_t)blockIdx.x * nq + qi] = best_i;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+nn_search_reduce(const T* __restrict__ part_d, const int* __restrict__ part_i,
+                 int nq, int n_chunks, T* __restrict__ out_d,
+                 int* __restrict__ out_i) {
+  reduce_chunks(part_d, part_i, nq, n_chunks, out_d, out_i);
 }
 
 // Inserts (d, i) into the ascending list (ld, li) of length k if it beats
@@ -284,6 +372,24 @@ int launch_match_transform(const void* q, int nq, const void* x, int n,
 }
 
 template <typename T>
+int launch_nn(const void* q, int nq, const void* r, int n, const void* mask,
+              int chunk_len, int n_chunks, void* part_d, void* part_i,
+              void* out_d, void* out_i, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 scan_grid(n_chunks, (nq + kThreads - 1) / kThreads);
+  nn_search_scan<T><<<scan_grid, kThreads, 0, s>>>(
+      static_cast<const T*>(q), nq, static_cast<const T*>(r), n,
+      static_cast<const uint8_t*>(mask), chunk_len, static_cast<T*>(part_d),
+      static_cast<int*>(part_i));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nn_search_reduce<T><<<(nq + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      static_cast<const T*>(part_d), static_cast<const int*>(part_i), nq,
+      n_chunks, static_cast<T*>(out_d), static_cast<int*>(out_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_knn(const void* q, int nq, const void* r, int n, const void* mask,
                int k, int chunk_len, int n_chunks, void* part_d, void* part_i,
                void* out_d, void* out_i, void* stream) {
@@ -320,6 +426,22 @@ int simpleicp_match_transform_f64(const void* q, int nq, const void* x, int n,
                                   void* out_i, void* stream) {
   return launch_match_transform<double>(q, nq, x, n, h, chunk_len, n_chunks,
                                         part_d, part_i, out_d, out_i, stream);
+}
+
+int simpleicp_nn_f32(const void* q, int nq, const void* r, int n,
+                     const void* mask, int chunk_len, int n_chunks,
+                     void* part_d, void* part_i, void* out_d, void* out_i,
+                     void* stream) {
+  return launch_nn<float>(q, nq, r, n, mask, chunk_len, n_chunks, part_d,
+                          part_i, out_d, out_i, stream);
+}
+
+int simpleicp_nn_f64(const void* q, int nq, const void* r, int n,
+                     const void* mask, int chunk_len, int n_chunks,
+                     void* part_d, void* part_i, void* out_d, void* out_i,
+                     void* stream) {
+  return launch_nn<double>(q, nq, r, n, mask, chunk_len, n_chunks, part_d,
+                           part_i, out_d, out_i, stream);
 }
 
 int simpleicp_knn_f32(const void* q, int nq, const void* r, int n,

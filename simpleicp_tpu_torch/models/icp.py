@@ -1,21 +1,26 @@
-"""The ICP driver: the ungated, monolithic main path.
+"""The ICP pipeline: the monolithic main path, with or without the gate.
 
-Pipeline of ``icp_register`` with the default configuration:
+Pipeline of ``icp_register``:
   1. initial H from the observed rigid-body parameters;
-  2. fixed-count selection: round(linspace) over the fixed cloud's indices
-     (no overlap gate);
-  3. normals: k-NN neighbourhoods (the k-NN kernel on the card) and the
-     closed-form 3x3 eigensolver;
-  4. iterate: fused transform + 1-NN match (the match kernel on the card,
-     over the untransformed movable cloud) -> planarity gate -> median/MAD
-     rejection -> Gauss-Newton solve -> convergence on the mean/std change;
-  5. a-posteriori uncertainties.
+  2. overlap gate (finite ``max_overlap_distance``): the 1-NN of every fixed
+     point among the movable cloud moved by the initial H (the 1-NN kernel
+     on the card); the fixed points within the radius survive;
+  3. fixed-count selection: round(linspace) over the indices of the fixed
+     points (of the survivors when gated);
+  4. normals: the user's, gathered at the selection, or k-NN neighbourhoods
+     (the k-NN kernel on the card) and the closed-form 3x3 eigensolver;
+  5. iterate: fused transform + 1-NN match (the match kernel on the card,
+     over the untransformed movable cloud) -> planarity gate (both clouds
+     when the movable cloud carries planarity) -> median/MAD rejection ->
+     Gauss-Newton solve -> convergence on the mean/std change;
+  6. a-posteriori uncertainties.
 
 The loop runs on the host and keeps its state on the device; it reads one
 flag back per ICP iteration (converged or failed) and one per Gauss-Newton
-step (``utils/sync.py`` counts them). Its results equal those of the JAX
-package's ``lax.while_loop`` field for field: the state it keeps on an
-error, the iteration it stops at, the buffers it fills.
+step, and the gate reads back the number of survivors (``utils/sync.py``
+counts them). Its results equal those of the JAX package's
+``lax.while_loop`` field for field: the state it keeps on an error, the
+iteration it stops at, the buffers it fills.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from ..config import IcpConfig
-from ..ops.knn import knn_search, match_transform
+from ..ops.knn import knn_search, match_transform, nn_search_auto
 from ..ops.normals import estimate_normals_from_neighborhoods
 from ..ops.stats import masked_mad, masked_mean, masked_median, masked_std, pct_change
 from ..ops.transform import (
@@ -36,13 +41,21 @@ from ..ops.transform import (
     rbp_to_H,
     rotation_matrix_to_euler_angles,
 )
-from ..utils.sync import read_flag
+from ..utils.device import resolve
+from ..utils.sync import read_flag, read_nonzero
 from .solver import estimate_uncertainties, gn_solve, linearized_solve
 
 # Error codes of IcpResult.error_code.
 ERR_OK = 0
 ERR_NO_OVERLAP = 1
 ERR_TOO_FEW_CORRESPONDENCES = 2
+
+# Largest gate (nf x nm pairs) that gate_method="auto" sends to the brute
+# gate, as in the JAX package; above it that package plans the dilate gate.
+GATE_AUTO_BRUTE_PAIRS = 2**40
+# match_method="auto" picks the grid matcher above this many pairs per
+# iteration when a radius is available, as in the JAX package.
+MATCH_AUTO_PAIR_BUDGET = 2**38
 
 
 class IcpResult(NamedTuple):
@@ -69,10 +82,12 @@ class IcpResult(NamedTuple):
     sel_valid: torch.Tensor          # (C,) validity of sel_idx
     normals: torch.Tensor            # (C,3) normals at the selected points
     planarity: torch.Tensor          # (C,) planarity at the selected points
-    iter_ps: torch.Tensor            # (1,6) parameters of iteration 0
-    iter_midx: torch.Tensor          # (1,C) matched movable indices, iter 0
-    iter_masks: torch.Tensor         # (1,C) post-rejection validity, iter 0
-    iter_dists: torch.Tensor         # (1,C) pre-optim p2plane distances, iter 0
+    iter_ps: torch.Tensor            # (R,6) parameters per iteration
+    iter_midx: torch.Tensor          # (R,C) matched movable indices
+    iter_masks: torch.Tensor         # (R,C) post-rejection validity
+    iter_dists: torch.Tensor         # (R,C) pre-optim p2plane distances
+                                     # (R = max_iterations when recording
+                                     # the trajectory, else 1: iteration 0)
     iter_gn_rel_steps: torch.Tensor  # (max_iterations,) last inner-GN
                                      # relative step per iteration (0 for the
                                      # linearized solver)
@@ -117,6 +132,43 @@ def _check_round_linspace_domain(correspondences: int, nf: int) -> None:
         )
 
 
+def round_linspace(n_sel: int, n: int, device=None) -> torch.Tensor:
+    """np.round(np.linspace(0, n_sel - 1, n)) as an (n,) int64 tensor,
+    computed as numpy computes it: in float64, step = span / div, y = i *
+    step, y[-1] = span, rounded half to even. (The JAX package emulates
+    these two float64 roundings in int32 limbs because the TPU has no
+    float64; the card and the CPU have it.) n_sel is a host integer."""
+    div = n - 1
+    span = max(int(n_sel) - 1, 0)
+    y = torch.arange(n, dtype=torch.float64, device=device) * (span / div)
+    y[-1] = span
+    return torch.round(y).to(torch.int64)
+
+
+def _select_compacted(compacted: torch.Tensor, nf: int, n: int):
+    """Fixed-count equidistant selection over the ascending indices
+    ``compacted`` of the selected fixed points (of nf): round(linspace)
+    positions when more than n are selected, else all of them, the slots
+    past them invalid and holding what the JAX package's zero-padded
+    compaction gives. Returns (sel_idx int32 (n,), valid bool (n,))."""
+    dev = compacted.device
+    n_sel = compacted.shape[0]
+    if n_sel > n:
+        return (compacted[round_linspace(n_sel, n, dev)].to(torch.int32),
+                torch.ones(n, dtype=torch.bool, device=dev))
+    seq = torch.arange(n, device=dev)
+    padded = torch.zeros(nf, dtype=compacted.dtype, device=dev)
+    padded[:n_sel] = compacted
+    return (padded[torch.clamp(seq, max=nf - 1)].to(torch.int32),
+            seq < n_sel)
+
+
+def _select_n(sel_mask: torch.Tensor, n: int):
+    """The gated selection of the reference's select_n_points over a (nf,)
+    bool mask. Returns (sel_idx int32 (n,), valid bool (n,))."""
+    return _select_compacted(read_nonzero(sel_mask), sel_mask.shape[0], n)
+
+
 def _static_ungated_selection(nf: int, C: int):
     """Fixed-count selection without a gate, on the host: exact
     np.round(np.linspace(0, nf - 1, C)) when nf > C, else every point.
@@ -131,9 +183,40 @@ def _static_ungated_selection(nf: int, C: int):
     return host_idx, valid
 
 
-def _normals_stage(Q, Xf, *, cfg: IcpConfig):
-    """Normals and planarity at the selected points from their k-NN
-    neighbourhoods in the fixed cloud."""
+def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig):
+    """Overlap gate and fixed-count selection.
+
+    Returns (sel_idx, sel_valid, error) with error a host int (ERR_OK or
+    ERR_NO_OVERLAP)."""
+    dev = Xf.device
+    C = cfg.correspondences
+    if not cfg.overlap_enabled:
+        host_idx, valid_np = _static_ungated_selection(Xf.shape[0], C)
+        return (torch.as_tensor(host_idx, device=dev),
+                torch.as_tensor(valid_np, device=dev), ERR_OK)
+    # The initial transform applies before the gate.
+    d2, _ = nn_search_auto(Xf, apply_H(Xm, H0))
+    # The radius is cast to the coordinate dtype before it is squared.
+    r = torch.tensor(cfg.max_overlap_distance, dtype=Xf.dtype, device=dev)
+    compacted = read_nonzero(d2 <= r ** 2)
+    error = ERR_OK
+    if compacted.shape[0] == 0:
+        # No fixed point survives: the selection runs over all of them and
+        # the loop runs no iteration.
+        error = ERR_NO_OVERLAP
+        compacted = torch.arange(Xf.shape[0], device=dev)
+    sel_idx, sel_valid = _select_compacted(compacted, Xf.shape[0], C)
+    return sel_idx, sel_valid, error
+
+
+def _normals_stage(Q, Xf, sel_idx, normals_fix, planarity_fix, *,
+                   cfg: IcpConfig):
+    """Normals and planarity at the selected points: the user's, gathered
+    at the selection, or estimated from their k-NN neighbourhoods in the
+    fixed cloud."""
+    if normals_fix is not None:
+        idx = sel_idx.long()
+        return normals_fix[idx], planarity_fix[idx]
     _, idxk = knn_search(Q, Xf, cfg.neighbors)
     neigh = Xf[idxk.long()]  # (C, k, 3)
     normals, planarity, _ = estimate_normals_from_neighborhoods(neigh)
@@ -163,6 +246,10 @@ def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
         return torch.full(shape, value, dtype=dt, device=dev)
 
     auto_dw = cfg.distance_weights is None
+    # Trajectory buffers hold max_iterations slots when recording, else one
+    # (iteration 0 writes it, later writes fall outside and are dropped, as
+    # the JAX package's scatter drops them).
+    R = T if cfg.record_trajectory else 1
     return _Carry(
         it=0,
         p=obs_vals.to(dtype),
@@ -181,24 +268,26 @@ def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
         residuals=full((C,), 0.0),
         residual_mask=full((C,), False, torch.bool),
         m_idx=full((C,), 0, torch.int32),
-        # Trajectory buffers hold one slot (trajectory recording is not
-        # ported): iteration 0 writes it, later writes fall outside and are
-        # dropped, as the JAX package's scatter drops them.
-        iter_ps=full((1, 6), 0.0),
-        iter_midx=full((1, C), 0, torch.int32),
-        iter_masks=full((1, C), False, torch.bool),
-        iter_dists=full((1, C), 0.0),
+        iter_ps=full((R, 6), 0.0),
+        iter_midx=full((R, C), 0, torch.int32),
+        iter_masks=full((R, C), False, torch.bool),
+        iter_dists=full((R, C), 0.0),
         iter_gn=full((T,), 0.0),
     )
 
 
 def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
-                 cfg: IcpConfig, dtype, error0, H0, match_fn, gather_fn):
+                 cfg: IcpConfig, dtype, error0: int, H0, match_fn, gather_fn,
+                 mov_planarity_fn=None):
     """The match -> reject -> solve -> converge iteration.
 
     ``match_fn(Ht) -> (m_idx, m_t, m_orig, m_valid)`` matches against the
     movable cloud moved by Ht; ``gather_fn(m_idx) -> (C, 3)`` fetches
-    original-frame movable points for the uncertainty estimate.
+    original-frame movable points for the uncertainty estimate;
+    ``mov_planarity_fn(m_idx) -> (C,)``, when given, is the matched movable
+    points' planarity, gated like the fixed side's. ``error0`` is the host
+    error code the loop starts from (ERR_NO_OVERLAP from the gate runs no
+    iteration).
 
     Returns (final_carry, uncertainties, covariance).
     """
@@ -228,6 +317,8 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
         # "joint": median/MAD of all matches, both criteria jointly.
         matched = sel_valid & m_valid
         mask_p = matched & (planarity >= min_planarity)
+        if mov_planarity_fn is not None:
+            mask_p = mask_p & (mov_planarity_fn(m_idx) >= min_planarity)
         mad_base = matched if cfg.rejection_staging == "joint" else mask_p
         med = masked_median(d, mad_base)
         sigma = 3.0 * masked_mad(d, mad_base, scale=cfg.mad_scale)
@@ -279,11 +370,11 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
         c.iter_means[c.it] = mean
         c.iter_stds[c.it] = std
         c.iter_gn[c.it] = gn_rel
-        if c.it == 0:
-            c.iter_ps[0] = p_new
-            c.iter_midx[0] = m_idx
-            c.iter_masks[0] = mask
-            c.iter_dists[0] = d
+        if c.it < c.iter_ps.shape[0]:
+            c.iter_ps[c.it] = p_new
+            c.iter_midx[c.it] = m_idx
+            c.iter_masks[c.it] = mask
+            c.iter_dists[c.it] = d
         return c._replace(
             it=c.it + 1,
             p=p_new,
@@ -301,11 +392,14 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
             m_idx=torch.where(bad, c.m_idx, m_idx),
         )
 
-    c = make_carry_init(cfg, dtype, obs_vals, H0, error0)
-    while c.it < T:
+    c = make_carry_init(cfg, dtype, obs_vals, H0,
+                        torch.tensor(error0, dtype=torch.int32, device=Q.device))
+    # The JAX loop tests (it < T) & ~converged & (error == OK) before every
+    # iteration, the first included.
+    go = error0 == ERR_OK
+    while go and c.it < T:
         c = body(c)
-        if c.it < T and read_flag(c.converged | (c.error != ERR_OK)):
-            break
+        go = c.it < T and not read_flag(c.converged | (c.error != ERR_OK))
 
     uncertainties, covariance = estimate_uncertainties(
         c.p, gather_fn(c.m_idx), Q, normals, c.residual_mask,
@@ -345,52 +439,62 @@ def _result_from_carry(c: _Carry, uncertainties, covariance, sel_idx,
     )
 
 
-def _refuse_unported(cfg: IcpConfig, **given) -> None:
-    """Raise NotImplementedError for every setting this package does not
-    run yet, naming the ROADMAP item that will port it."""
-    checks = [
-        (cfg.overlap_enabled, "a finite max_overlap_distance (the overlap gate)",
-         "ROADMAP queue 1 item 8 (gated main path)"),
-        (cfg.match_method == "grid", "match_method='grid'",
-         "ROADMAP queue 1 item 11 (gridhash)"),
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to simpleicp_tpu_torch yet: ROADMAP queue 1 {item}"
+    )
+
+
+ITEM_GRID = "item 11 (gridhash)"
+ITEM_DILATE = "item 13 (dilate gate)"
+
+
+def _resolve_engines(cfg: IcpConfig, nf: int, nm: int, *,
+                     fixed_prep) -> IcpConfig:
+    """The configuration with its matcher, gate and dispatch resolved as the
+    JAX package resolves them off the TPU. Every setting this package does
+    not run yet raises NotImplementedError naming the ROADMAP item that will
+    port it; none is ignored."""
+    for hit, what, item in (
         (cfg.dispatch == "chunked", "dispatch='chunked'",
-         "ROADMAP queue 1 item 12 (chunked dispatch)"),
-        (cfg.warm_start, "warm_start=True",
-         "ROADMAP queue 1 item 10 (serving)"),
-        (cfg.record_trajectory, "record_trajectory=True",
-         "ROADMAP queue 1 item 9 (class API and CLI)"),
+         "item 12 (chunked dispatch)"),
+        (cfg.warm_start, "warm_start=True", "item 10 (serving)"),
         (cfg.approx_knn, "approx_knn=True",
-         "ROADMAP queue 1 item 15 (approximate normal k-NN)"),
-    ]
-    for name, item in (("normals_fix", "item 8 (user normals and planarity)"),
-                       ("planarity_fix", "item 8 (user normals and planarity)"),
-                       ("planarity_mov", "item 8 (user normals and planarity)"),
-                       ("fixed_prep", "item 10 (serving)")):
-        checks.append((given[name] is not None, f"the {name} argument",
-                       f"ROADMAP queue 1 {item}"))
-    for hit, what, item in checks:
+         "item 15 (approximate normal k-NN)"),
+        (fixed_prep is not None, "the fixed_prep argument", "item 10 (serving)"),
+    ):
         if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to simpleicp_tpu_torch yet: {item}"
-            )
-
-
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device found: icp_register runs on the card by "
-                "default; pass device='cpu' to run the plain versions on the "
-                "CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+            raise not_ported(what, item)
+    match = cfg.match_method
+    if match == "auto":
+        has_radius = cfg.match_radius > 0 or cfg.overlap_enabled
+        big = cfg.correspondences * nm > MATCH_AUTO_PAIR_BUDGET
+        match = "grid" if (big and has_radius) else "brute"
+        if match == "grid":
+            raise not_ported(
+                f"match_method='auto' at {cfg.correspondences} x {nm} pairs "
+                "per iteration (the grid matcher)", ITEM_GRID)
+    if match == "grid":
+        raise not_ported("match_method='grid'", ITEM_GRID)
+    gate = cfg.gate_method
+    if cfg.overlap_enabled:
+        if gate == "grid":
+            raise not_ported("gate_method='grid'", ITEM_GRID)
+        if gate == "dilate":
+            raise not_ported("gate_method='dilate'", ITEM_DILATE)
+        if gate == "auto" and nf * nm > GATE_AUTO_BRUTE_PAIRS:
+            raise not_ported(
+                f"gate_method='auto' at {nf} x {nm} pairs (above 2^40 the JAX "
+                "package plans the dilate gate)", ITEM_DILATE)
+        gate = "brute"
+    return dataclasses.replace(cfg, match_method=match, gate_method=gate,
+                               dispatch="monolithic")
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype).contiguous()
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device).contiguous()
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device).contiguous()
 
 
 def icp_register(
@@ -418,8 +522,14 @@ def icp_register(
             radians; they also give the initial transform.
         rbp_observation_weights: (6,) weights; 0 free, finite > 0 observed,
             inf frozen.
-        normals_fix, planarity_fix, planarity_mov, fixed_prep: accepted for
-            the JAX package's signature; not ported yet (must be None).
+        normals_fix / planarity_fix: optional (nf, 3) normals and (nf,)
+            planarity of the fixed cloud; given normals skip the normal
+            estimate (planarity then defaults to ones).
+        planarity_mov: optional (nm,) planarity of the movable cloud; a
+            correspondence whose movable point is below min_planarity is
+            rejected too.
+        fixed_prep: accepted for the JAX package's signature; not ported
+            yet (must be None).
         device: "cuda" by default, which raises when no card is found;
             "cpu" runs the kernels' plain versions.
         dtype: coordinate dtype, float32 by default (solver math is float64
@@ -442,20 +552,13 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
                   planarity_mov, fixed_prep, device, dtype):
     """``icp_register``, also returning the loop's final state (whose
     ``m_idx`` holds the last iteration's matches)."""
-    _refuse_unported(cfg, normals_fix=normals_fix, planarity_fix=planarity_fix,
-                     planarity_mov=planarity_mov, fixed_prep=fixed_prep)
-    dev = _resolve_device(device)
-    dtype = torch.float32 if dtype is None else dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    dev, dtype = resolve(device, dtype)
     Xf = _as_tensor(X_fix, dtype, dev)
     Xm = _as_tensor(X_mov, dtype, dev)
     if Xf.dim() != 2 or Xf.shape[1] != 3 or Xm.dim() != 2 or Xm.shape[1] != 3:
         raise ValueError("point clouds must have shape (n, 3)")
     _check_round_linspace_domain(cfg.correspondences, Xf.shape[0])
-    # "auto" resolves as the JAX package resolves it off the TPU without a
-    # radius: the brute matcher in one monolithic run.
-    cfg = dataclasses.replace(cfg, match_method="brute", dispatch="monolithic")
+    cfg = _resolve_engines(cfg, Xf.shape[0], Xm.shape[0], fixed_prep=fixed_prep)
 
     zeros6 = torch.zeros(6, dtype=dtype, device=dev)
     obs_vals = (zeros6 if rbp_observed_values is None
@@ -463,14 +566,24 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
     obs_w = (zeros6 if rbp_observation_weights is None
              else _as_tensor(rbp_observation_weights, dtype, dev))
 
+    if normals_fix is not None:
+        normals_fix = _as_tensor(normals_fix, dtype, dev)
+        planarity_fix = (torch.ones(Xf.shape[0], dtype=dtype, device=dev)
+                         if planarity_fix is None
+                         else _as_tensor(planarity_fix, dtype, dev))
+    mov_planarity_fn = None
+    if planarity_mov is not None:
+        planarity_mov = _as_tensor(planarity_mov, dtype, dev)
+
+        def mov_planarity_fn(m_idx):
+            return planarity_mov[m_idx.long()]
+
     H0 = rbp_to_H(obs_vals)
-    error0 = torch.tensor(ERR_OK, dtype=torch.int32, device=dev)
-    host_idx, valid_np = _static_ungated_selection(Xf.shape[0], cfg.correspondences)
-    sel_idx = torch.as_tensor(host_idx, device=dev)
-    sel_valid = torch.as_tensor(valid_np, device=dev)
+    sel_idx, sel_valid, error0 = _gate_select_stages(Xf, Xm, H0, cfg=cfg)
     Q = Xf[sel_idx.long()].contiguous()
 
-    normals, planarity = _normals_stage(Q, Xf, cfg=cfg)
+    normals, planarity = _normals_stage(Q, Xf, sel_idx, normals_fix,
+                                        planarity_fix, cfg=cfg)
     match_fn = _make_match_fn(Q, Xm)
 
     def gather_fn(m_idx):
@@ -478,7 +591,7 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
 
     final, uncertainties, covariance = run_icp_loop(
         Q, normals, planarity, sel_valid, obs_vals, obs_w, cfg, dtype,
-        error0, H0, match_fn, gather_fn,
+        error0, H0, match_fn, gather_fn, mov_planarity_fn=mov_planarity_fn,
     )
     result = _result_from_carry(
         final, uncertainties, covariance, sel_idx, sel_valid, normals,

@@ -7,6 +7,8 @@
   64*eps(float64).
 * ``linearized_solve`` — one small-angle increment solve per iteration.
 * ``estimate_uncertainties`` — a-posteriori sigmas and covariance.
+* ``Parameter`` / ``RigidBodyParameters`` — the host-side (numpy) parameter
+  containers of the class API.
 
 All solver math runs in float64 whatever the coordinate dtype (the H100 has
 native float64). The Jacobian of the point-to-plane residual is analytic:
@@ -17,6 +19,10 @@ so every shape is static.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import List
+
+import numpy as np
 import torch
 
 from ..ops.transform import (
@@ -280,3 +286,89 @@ def estimate_uncertainties(p: torch.Tensor, xm: torch.Tensor, xf: torch.Tensor,
     Cxx = (s0_sq * Qxx * vary_f[:, None] * vary_f[None, :]).to(dtype)
     nan = torch.full_like(sigma, float("nan"))
     return torch.where(vary, sigma, nan), Cxx
+
+
+# ---------------------------------------------------------------------------
+# Host-side parameter containers (the reference simpleICP Python's
+# dataclasses, with the same fields and scaling).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Parameter:
+    """A single rigid-body transformation parameter."""
+
+    initial_value: float = np.nan
+    observed_value: float = np.nan
+    observation_weight: float = np.nan
+    estimated_value: float = np.nan
+    estimated_uncertainty: float = np.nan
+    scale_for_logging: float = 1.0
+
+    @property
+    def initial_value_scaled(self):
+        return self.initial_value * self.scale_for_logging
+
+    @property
+    def observed_value_scaled(self):
+        return self.observed_value * self.scale_for_logging
+
+    @property
+    def estimated_value_scaled(self):
+        return self.estimated_value * self.scale_for_logging
+
+    @property
+    def estimated_uncertainty_scaled(self):
+        return self.estimated_uncertainty * self.scale_for_logging
+
+
+def _angle_param():
+    return Parameter(scale_for_logging=180.0 / np.pi)
+
+
+@dataclasses.dataclass
+class RigidBodyParameters:
+    """The six rigid-body transformation parameters (angles stored in
+    radians; logged in degrees via scale_for_logging)."""
+
+    alpha1: Parameter = dataclasses.field(default_factory=_angle_param)
+    alpha2: Parameter = dataclasses.field(default_factory=_angle_param)
+    alpha3: Parameter = dataclasses.field(default_factory=_angle_param)
+    tx: Parameter = dataclasses.field(default_factory=Parameter)
+    ty: Parameter = dataclasses.field(default_factory=Parameter)
+    tz: Parameter = dataclasses.field(default_factory=Parameter)
+
+    @property
+    def H(self) -> np.ndarray:
+        """4x4 homogeneous transform built from the estimated values
+        (host-side float64, whatever the run's dtype)."""
+        a1, a2, a3, tx, ty, tz = self.get_parameter_attributes_as_list(
+            "estimated_value"
+        )
+        H = np.eye(4)
+        H[:3, :3] = host_rotation(a1, a2, a3)
+        H[:3, 3] = [tx, ty, tz]
+        return H
+
+    def _params(self):
+        return (self.alpha1, self.alpha2, self.alpha3, self.tx, self.ty, self.tz)
+
+    def set_parameter_attributes_from_list(self, attribute_name: str, array) -> None:
+        for param, value in zip(self._params(), array):
+            setattr(param, attribute_name, float(value))
+
+    def get_parameter_attributes_as_list(self, attribute_name: str) -> List[float]:
+        return [getattr(param, attribute_name) for param in self._params()]
+
+
+def host_rotation(a1, a2, a3) -> np.ndarray:
+    """The x->y->z Euler rotation on the host in float64 (complex angles
+    work too, for complex-step derivatives)."""
+    c1, s1 = np.cos(a1), np.sin(a1)
+    c2, s2 = np.cos(a2), np.sin(a2)
+    c3, s3 = np.cos(a3), np.sin(a3)
+    return np.array([
+        [c2 * c3, -c2 * s3, s2],
+        [c1 * s3 + s1 * s2 * c3, c1 * c3 - s1 * s2 * s3, -s1 * c2],
+        [s1 * s3 - c1 * s2 * c3, s1 * c3 + c1 * s2 * s3, c1 * c2],
+    ])

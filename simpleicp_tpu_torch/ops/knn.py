@@ -121,17 +121,29 @@ def nn_search(queries: torch.Tensor, refs: torch.Tensor, *,
     """Single nearest neighbour of each query among refs.
 
     Returns (dist2, idx) of shapes (q,), (q,) int32; dist2 is +inf and idx 0
-    when no valid reference exists. On a CUDA tensor this is the k-NN
-    kernel with k=1, whose (d2, index) order gives the same first minimum.
+    when no valid reference exists. On a CUDA tensor this is the 1-NN
+    kernel of the overlap gate.
     """
     _check_points("queries", queries)
     _check_points("refs", refs)
     if refs.shape[0] == 0:
         return _no_refs(queries)
     if _on_device(queries):
-        d2, idx = knn_cuda.knn_search_cuda(queries, refs, 1, ref_mask)
-        return d2[:, 0], idx[:, 0]
+        return knn_cuda.nn_search_cuda(queries, refs, ref_mask)
     return nn_search_plain(queries, refs, ref_mask)
+
+
+def nn_search_auto(queries: torch.Tensor, refs: torch.Tensor, *,
+                   ref_tile: int = 4096, query_tile: int = 2048,
+                   ref_mask: Optional[torch.Tensor] = None,
+                   use_pallas: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nn_search`` under the JAX package's signature of the gate's
+    dispatcher. ``ref_tile``, ``query_tile`` and ``use_pallas`` choose TPU
+    tiles and kernels there and change no result by contract, so they are
+    accepted and ignored: this is always ``nn_search``."""
+    del ref_tile, query_tile, use_pallas
+    return nn_search(queries, refs, ref_mask=ref_mask)
 
 
 def knn_search(queries: torch.Tensor, refs: torch.Tensor, k: int, *,

@@ -1,4 +1,4 @@
-"""ctypes wrappers of the two nearest-neighbour kernels in ``csrc/knn.cu``.
+"""ctypes wrappers of the three nearest-neighbour kernels in ``csrc/knn.cu``.
 
 Each wrapper checks its tensors, allocates the outputs and the partials
 scratch with ``torch.empty``, launches the kernel's two passes on PyTorch's
@@ -22,7 +22,7 @@ import torch
 from .. import _build
 
 # Launches per kernel since the last reset_launch_counts().
-LAUNCHES = {"match_transform": 0, "knn_search": 0}
+LAUNCHES = {"match_transform": 0, "knn_search": 0, "nn_search": 0}
 
 MAX_K = 64          # csrc/knn.cu kMaxK
 _THREADS = 256      # csrc/knn.cu kThreads: queries per block
@@ -52,6 +52,11 @@ def _library() -> ctypes.CDLL:
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"simpleicp_match_transform_{suffix}")
                 # q, nq, refs, n, h, chunk_len, n_chunks, part_d, part_i,
+                # out_d, out_i, stream
+                fn.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
+                fn.restype = _I
+                fn = getattr(lib, f"simpleicp_nn_{suffix}")
+                # q, nq, refs, n, mask, chunk_len, n_chunks, part_d, part_i,
                 # out_d, out_i, stream
                 fn.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
                 fn.restype = _I
@@ -172,4 +177,32 @@ def knn_search_cuda(queries: torch.Tensor, refs: torch.Tensor, k: int,
                  out_d.data_ptr(), out_i.data_ptr(), stream)
     _raise_on(err, "knn_search")
     LAUNCHES["knn_search"] += 1
+    return out_d, out_i
+
+
+def nn_search_cuda(queries: torch.Tensor, refs: torch.Tensor,
+                   ref_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel of ``knn.nn_search``: the first-minimum 1-NN of each query;
+    masked refs never win, and a query with no valid ref gets d2 = +inf and
+    index 0."""
+    dev, dtype, suffix, n_q, n_r = _common(queries, refs)
+    if ref_mask is not None:
+        _check("ref_mask", ref_mask, dev, torch.bool, (n_r,))
+    out_d = torch.empty((n_q,), dtype=dtype, device=dev)
+    out_i = torch.empty((n_q,), dtype=torch.int32, device=dev)
+    if n_q == 0:
+        return out_d, out_i
+    chunk_len, n_chunks = _plan_chunks(n_q, n_r)
+    part_d = torch.empty((n_chunks, n_q), dtype=dtype, device=dev)
+    part_i = torch.empty((n_chunks, n_q), dtype=torch.int32, device=dev)
+    fn = getattr(_library(), f"simpleicp_nn_{suffix}")
+    mask_ptr = None if ref_mask is None else ref_mask.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(queries.data_ptr(), n_q, refs.data_ptr(), n_r, mask_ptr,
+                 chunk_len, n_chunks, part_d.data_ptr(), part_i.data_ptr(),
+                 out_d.data_ptr(), out_i.data_ptr(), stream)
+    _raise_on(err, "nn_search")
+    LAUNCHES["nn_search"] += 1
     return out_d, out_i

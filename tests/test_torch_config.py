@@ -72,15 +72,12 @@ def test_config_from_dict_round_trip():
 _X = np.random.default_rng(0).uniform(0, 1, (50, 3))
 
 UNPORTED = {
-    "overlap_gate": (dict(max_overlap_distance=1.0), {}),
     "grid_matcher": (dict(match_method="grid", match_radius=0.5), {}),
+    "grid_gate": (dict(max_overlap_distance=1.0, gate_method="grid"), {}),
+    "dilate_gate": (dict(max_overlap_distance=1.0, gate_method="dilate"), {}),
     "chunked": (dict(dispatch="chunked"), {}),
     "warm_start": (dict(warm_start=True), {}),
-    "record_trajectory": (dict(record_trajectory=True), {}),
     "approx_knn": (dict(approx_knn=True), {}),
-    "normals_fix": ({}, dict(normals_fix=_X)),
-    "planarity_fix": ({}, dict(planarity_fix=_X[:, 0])),
-    "planarity_mov": ({}, dict(planarity_mov=_X[:, 0])),
     "fixed_prep": ({}, dict(fixed_prep=object())),
 }
 
@@ -91,6 +88,39 @@ def test_unported_settings_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         icp_register(_X, _X, IcpConfig(correspondences=10, **cfg_kw),
                      device="cpu", **call_kw)
+
+
+_N = np.column_stack([np.zeros(50), np.zeros(50), np.ones(50)])
+
+PORTED = {
+    "overlap_gate": (dict(max_overlap_distance=1.0), {}),
+    "record_trajectory": (dict(record_trajectory=True), {}),
+    "normals_fix": ({}, dict(normals_fix=_N)),
+    "planarity_fix": ({}, dict(normals_fix=_N, planarity_fix=np.ones(50))),
+    "planarity_mov": ({}, dict(planarity_mov=np.ones(50))),
+}
+
+
+@pytest.mark.parametrize("name", list(PORTED))
+def test_ported_settings_run(name):
+    """Settings that the first slice refused and the gated slice runs."""
+    cfg_kw, call_kw = PORTED[name]
+    res = icp_register(_X, _X + 0.01, IcpConfig(correspondences=10, **cfg_kw),
+                       device="cpu", **call_kw)
+    assert bool(np.isfinite(res.H.numpy()).all())
+
+
+def test_gated_jax_config_converts_and_runs():
+    """A gated JAX IcpConfig (gate radius, brute gate, recorded trajectory)
+    converts field for field and runs instead of being refused."""
+    j = JaxConfig(correspondences=20, max_overlap_distance=0.5, gate_method="brute",
+                  record_trajectory=True, distance_weights=None)
+    t = config_from_dict(dataclasses.asdict(j))
+    assert dataclasses.asdict(t) == dataclasses.asdict(j) and t.overlap_enabled
+    rng = np.random.default_rng(2)
+    X = rng.uniform(-1, 1, (400, 3)) * [1, 1, 0.1]
+    res = icp_register(X, X + 0.01, t, device="cpu")
+    assert int(res.error_code) == 0 and res.iter_ps.shape == (100, 6)
 
 
 def test_tpu_only_fields_change_nothing():

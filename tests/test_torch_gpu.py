@@ -92,6 +92,83 @@ def test_knn_kernel_mask_and_ties(cuda, dtype):
            knn.knn_search_plain(Q, R, 5, ref_mask=few))
 
 
+NN_SHAPES = SHAPES + [(4099, 3001), (100_000, 100_000)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nq,nr", NN_SHAPES)
+def test_nn_kernel(cuda, dtype, nq, nr):
+    """The 1-NN kernel of the overlap gate, with and without a ref mask."""
+    from simpleicp_tpu_torch.ops import knn, knn_cuda
+
+    rng = np.random.default_rng(5 * nq + nr)
+    q = torch.as_tensor(rng.uniform(-5, 5, (nq, 3)), dtype=dtype, device=cuda)
+    r = torch.as_tensor(rng.uniform(-5, 5, (nr, 3)), dtype=dtype, device=cuda)
+    mask = torch.as_tensor(rng.random(nr) < 0.5, device=cuda)
+    before = knn_cuda.LAUNCHES["nn_search"]
+    out = knn.nn_search(q, r)
+    assert knn_cuda.LAUNCHES["nn_search"] == before + 1
+    _equal(out, knn.nn_search_plain(q, r))
+    _equal(knn.nn_search_auto(q, r, ref_mask=mask),
+           knn.nn_search_plain(q, r, ref_mask=mask))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nn_kernel_ties_and_no_valid_ref(cuda, dtype):
+    from simpleicp_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(9)
+    g = np.arange(10.0)
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    q = lat[rng.choice(len(lat), 500, replace=False)] + 0.5 * rng.integers(0, 2, (500, 3))
+    Q = torch.as_tensor(q, dtype=dtype, device=cuda)
+    R = torch.as_tensor(lat, dtype=dtype, device=cuda)
+    _equal(knn.nn_search(Q, R), knn.nn_search_plain(Q, R))
+    mask = torch.as_tensor(rng.random(len(lat)) < 0.3, device=cuda)
+    _equal(knn.nn_search(Q, R, ref_mask=mask), knn.nn_search_plain(Q, R, ref_mask=mask))
+    none = torch.zeros(len(lat), dtype=torch.bool, device=cuda)
+    d, i = knn.nn_search(Q, R, ref_mask=none)
+    _equal((d, i), knn.nn_search_plain(Q, R, ref_mask=none))
+    assert bool(torch.isinf(d).all()) and not bool(i.any())
+
+
+def test_gated_icp_register_on_the_card(cuda):
+    """The gated path on the card: one 1-NN launch (the gate), one k-NN
+    launch, one match launch per iteration; float64 on the card equal to
+    float64 on the CPU in iterations, selection and last matches, H within
+    1e-9."""
+    from simpleicp_tpu_torch import IcpConfig
+    from simpleicp_tpu_torch.models.icp import _icp_register
+    from simpleicp_tpu_torch.ops import knn_cuda
+
+    rng = np.random.default_rng(12)
+
+    def surface(n, lo, hi):
+        xy = np.column_stack([rng.uniform(lo, hi, n), rng.uniform(-2, 2, n)])
+        return np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+
+    X_fix, X_mov = surface(20000, -2, 2), surface(20000, -1, 3) + [0.02, -0.01, 0.01]
+    cfg = IcpConfig(correspondences=500, max_iterations=30, max_overlap_distance=0.1)
+
+    def run(device):
+        return _icp_register(
+            X_fix, X_mov, cfg, rbp_observed_values=None,
+            rbp_observation_weights=None, normals_fix=None, planarity_fix=None,
+            planarity_mov=None, fixed_prep=None, device=device,
+            dtype=torch.float64)
+
+    knn_cuda.reset_launch_counts()
+    g, gc = run(cuda)
+    assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations),
+                                 "knn_search": 1, "nn_search": 1}
+    c, cc = run("cpu")
+    assert int(g.n_iterations) == int(c.n_iterations)
+    assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
+    assert torch.equal(gc.m_idx.cpu(), cc.m_idx)
+    assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
+    assert X_fix[g.sel_idx.cpu().numpy(), 0].min() > -1.2
+
+
 def test_icp_register_on_the_card(cuda):
     """The main path on the card: each kernel launched as often as the path
     needs, and float64 on the card equal to float64 on the CPU in
@@ -122,7 +199,8 @@ def test_icp_register_on_the_card(cuda):
 
     knn_cuda.reset_launch_counts()
     g, gc = run(cuda)
-    assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations), "knn_search": 1}
+    assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations), "knn_search": 1,
+                                 "nn_search": 0}
     c, cc = run("cpu")
     assert int(g.n_iterations) == int(c.n_iterations)
     assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
@@ -142,3 +220,7 @@ def test_wrappers_check_their_inputs(cuda):
         knn_cuda.knn_search_cuda(q, q, 65)
     with pytest.raises(ValueError):
         knn_cuda.match_transform_cuda(q, q, torch.eye(3, device=cuda))
+    with pytest.raises(ValueError):
+        knn_cuda.nn_search_cuda(q, q, torch.ones(5, dtype=torch.bool, device=cuda))
+    with pytest.raises(TypeError):
+        knn_cuda.nn_search_cuda(q, q, torch.ones(4, device=cuda))

@@ -20,7 +20,8 @@ ROOT = Path(simpleicp_tpu_torch.__file__).resolve().parent.parent
 def test_import_pulls_in_no_jax():
     code = (
         "import sys; import simpleicp_tpu_torch, simpleicp_tpu_torch.ops.knn, "
-        "simpleicp_tpu_torch.models.icp, simpleicp_tpu_torch.utils.xyz_io; "
+        "simpleicp_tpu_torch.models.icp, simpleicp_tpu_torch.utils.xyz_io, "
+        "simpleicp_tpu_torch.cli, simpleicp_tpu_torch.metrics; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'simpleicp_tpu' or m.startswith('simpleicp_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -86,8 +87,13 @@ def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
 
     monkeypatch.setattr(knn_cuda, "match_transform_cuda", boom)
     monkeypatch.setattr(knn_cuda, "knn_search_cuda", boom)
+    monkeypatch.setattr(knn_cuda, "nn_search_cuda", boom)
     X = np.random.default_rng(1).uniform(-1, 1, (400, 3)) * [1, 1, 0.1]
     res = icp_register(X, X + 0.01, IcpConfig(correspondences=30), device="cpu")
+    assert int(res.error_code) == 0
+    res = icp_register(X, X + 0.01, IcpConfig(correspondences=30,
+                                              max_overlap_distance=0.5),
+                       device="cpu")
     assert int(res.error_code) == 0
 
 
@@ -99,3 +105,63 @@ def test_wrappers_refuse_cpu_tensors():
         knn_cuda.match_transform_cuda(q, q, torch.eye(4))
     with pytest.raises(ValueError, match="CUDA"):
         knn_cuda.knn_search_cuda(q, q, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        knn_cuda.nn_search_cuda(q, q)
+
+
+def _xyz_pair(tmp_path):
+    from simpleicp_tpu_torch.utils.xyz_io import write_xyz
+
+    rng = np.random.default_rng(3)
+    xy = rng.uniform(-1, 1, (600, 2))
+    X = np.column_stack([xy, 0.2 * np.sin(3 * xy[:, 0])])
+    f1, f2 = tmp_path / "a.xyz", tmp_path / "b.xyz"
+    write_xyz(f1, X, fmt="%.6f")
+    write_xyz(f2, X + [0.01, 0.0, 0.0], fmt="%.6f")
+    return f1, f2
+
+
+def test_cli_subprocess_imports_no_jax(tmp_path):
+    """``python -m simpleicp_tpu_torch`` runs a gated registration on the
+    CPU and imports neither JAX nor the JAX package (-X importtime lists
+    every module it imported)."""
+    f1, f2 = _xyz_pair(tmp_path)
+    out = tmp_path / "out.xyz"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "simpleicp_tpu_torch",
+         "-f", str(f1), "-m", str(f2), "-o", "0.2", "-c", "100",
+         "--device", "cpu", "--export", str(out)],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    modules = [ln.rsplit("|", 1)[1].strip() for ln in proc.stderr.splitlines()
+               if ln.startswith("import time:") and ln.count("|") == 2]
+    assert "simpleicp_tpu_torch.cli" in modules
+    bad = [m for m in modules if m.split(".")[0] in ("jax", "jaxlib", "simpleicp_tpu")]
+    assert not bad, bad
+    assert "orig:0" in proc.stderr and "Finished in" in proc.stderr
+    assert out.exists()
+
+
+def test_no_cuda_means_the_cli_and_class_api_raise(monkeypatch, tmp_path):
+    """Without a card the CLI's default device, SimpleICP and the
+    PointCloud methods raise instead of running on the CPU."""
+    from simpleicp_tpu_torch import PointCloud, SimpleICP
+    from simpleicp_tpu_torch.cli import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    f1, f2 = _xyz_pair(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-f", str(f1), "-m", str(f2), "--quiet"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-f", str(f1), "-m", str(f2), "--quiet", "--device", "cuda"])
+    X = np.random.default_rng(4).uniform(0, 1, (100, 3))
+    icp = SimpleICP(verbose=False)
+    icp.add_point_clouds(PointCloud(X), PointCloud(X))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        icp.run(correspondences=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PointCloud(X).estimate_normals(5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        icp_register(X, X, IcpConfig(correspondences=10, max_overlap_distance=1.0))

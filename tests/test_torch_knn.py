@@ -11,7 +11,13 @@ Tolerances:
   3.1e-16 and 1.3e-7 relative);
 * against the Pallas kernels in interpret mode: indices equal, d2 within
   rtol 1e-6 (the Pallas transform associates as the port does, its
-  distance sum is contracted like XLA's).
+  distance sum is contracted like XLA's);
+* where every coordinate difference and square is exact (the integer and
+  half-integer tie lattice), d2 is bit-equal too.
+The 1-NN of the overlap gate (nn_search, nn_search_auto, min_dist_sq) is
+held to the same: indices bit-equal everywhere, including masked rows,
+queries with no valid ref (+inf, index 0; the Pallas kernel's masked lanes
+carry 1e30 there and are compared as such), odd sizes and exact ties.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ from simpleicp_tpu.ops import knn as jk
 from simpleicp_tpu.ops.knn_pallas import (
     knn_search_pallas,
     match_transform_pallas,
+    nn_search_pallas,
     pad_ref_planes,
 )
 from simpleicp_tpu.ops.transform import apply_H as j_apply_H
@@ -191,3 +198,73 @@ def test_plain_versions_chunk_queries(monkeypatch):
     n2, m2 = tk.nn_search(_t(q), _t(r))
     assert torch.equal(i1, i2) and torch.equal(d1, d2)
     assert torch.equal(m1, m2) and torch.equal(n1, n2)
+
+
+NN_SHAPES = [(1, 1), (7, 130), (512, 2048), (600, 3000), (1003, 4777)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nq,nr", NN_SHAPES)
+def test_nn_search_auto_vs_lax(dtype, nq, nr):
+    """nn_search_auto takes the JAX signature's tile and kernel choices
+    and ignores them; odd sizes, with and without a ref mask."""
+    q, r = _clouds(211 + nq, nq, nr, dtype, -5, 5)
+    mask = np.random.default_rng(nr).random(nr) < 0.6
+    mask[0] = True
+    for m in (None, mask):
+        jm = None if m is None else jnp.asarray(m)
+        tm = None if m is None else _t(m)
+        dj, ij = jk.nn_search(jnp.asarray(q), jnp.asarray(r), ref_mask=jm)
+        for kw in ({}, dict(ref_tile=64, query_tile=16, use_pallas=False)):
+            dt, it = tk.nn_search_auto(_t(q), _t(r), ref_mask=tm, **kw)
+            np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+            np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=RTOL[dtype])
+        np.testing.assert_array_equal(
+            tk.min_dist_sq(_t(q), _t(r), ref_mask=tm).numpy(), dt.numpy())
+
+
+@pytest.mark.parametrize("nq,nr", NN_SHAPES[:3])
+def test_nn_search_vs_pallas_interpret(nq, nr):
+    """Against the TPU 1-NN kernel it replaces, at the shapes of
+    tests/test_knn_pallas.py, masked and unmasked (float32)."""
+    q, r = _clouds(212 + nr, nq, nr, np.float32, 0, 1)
+    mask = np.zeros(nr, bool)
+    mask[::3] = True
+    for m in (None, mask):
+        jm = None if m is None else jnp.asarray(m)
+        dp, ip = nn_search_pallas(jnp.asarray(q), jnp.asarray(r), ref_mask=jm,
+                                  interpret=True)
+        dt, it = tk.nn_search(_t(q), _t(r), ref_mask=None if m is None else _t(m))
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ip))
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dp), rtol=1e-6)
+
+
+def test_nn_search_no_valid_ref_and_tie_lattice():
+    """No valid ref: +inf and index 0 (lax), where the Pallas kernel gives
+    its 1e30 marker and index 0. On the tie lattice, masked and unmasked,
+    indices and d2 are bit-equal to both."""
+    rng = np.random.default_rng(213)
+    lat = _lattice()
+    q = lat[rng.choice(len(lat), 80, replace=False)] + 0.5 * rng.integers(0, 2, (80, 3))
+    none = np.zeros(len(lat), bool)
+    dj, ij = jk.nn_search(jnp.asarray(q), jnp.asarray(lat), ref_mask=jnp.asarray(none))
+    dp, ip = nn_search_pallas(jnp.asarray(q, np.float32), jnp.asarray(lat, np.float32),
+                              ref_mask=jnp.asarray(none), interpret=True)
+    dt, it = tk.nn_search_auto(_t(q), _t(lat), ref_mask=_t(none))
+    assert np.isinf(dt.numpy()).all() and not it.numpy().any()
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ip))
+    assert (np.asarray(dp) >= 1e30).all()
+    mask = rng.random(len(lat)) < 0.5
+    for m in (None, mask):
+        jm = None if m is None else jnp.asarray(m)
+        dj, ij = jk.nn_search(jnp.asarray(q), jnp.asarray(lat), ref_mask=jm)
+        dp, ip = nn_search_pallas(jnp.asarray(q, np.float32),
+                                  jnp.asarray(lat, np.float32), ref_mask=jm,
+                                  interpret=True)
+        dt, it = tk.nn_search_auto(_t(q), _t(lat), ref_mask=None if m is None else _t(m))
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ip))
+        np.testing.assert_array_equal(dt.numpy().astype(np.float32), np.asarray(dp))
