@@ -19,7 +19,7 @@ Phases, each printing one JSON object on a line of its own:
   scale    icp_register at 1 340 000 x 1 340 000, float32, on the card; the
            match and k-NN kernels bit-equal to their plain versions on that
            run's selection and final H;
-  gated    icp_register with the overlap gate on a partial-overlap pair (the
+  gated    icp_register with the brute overlap gate on a partial-overlap pair (the
            fixed cloud over x in [-2, 2], the movable over [-1, 3], scaled
            at constant density): float32 at 100 000 x 100 000 recovers the
            motion and selects only points of the overlap, with one gate
@@ -28,10 +28,20 @@ Phases, each printing one JSON object on a line of its own:
            "auto" resolves to the brute gate: 1e12 < 2^40 pairs), where the
            gate kernel is bit-equal to its plain version on all 1M rows, and
            on refs of exact ties;
+  dilate   the dilate overlap gate: a 1 200 000 x 1 200 000 float32 registration
+           with gate_method "auto" (1.44e12 > 2^40 pairs, so it plans the
+           dilate gate), whose mask, selection, iterations and H equal the
+           brute gate's, with the dilate kernel bit-equal to its plain
+           version on that pair's own grid; the gate alone at 10M x 10M
+           (mask equal to the brute 1-NN mask over 1e14 pairs); a 200 000
+           pair with the thresholds lowered so that the band-ref compaction
+           and the blocked slab join run, masks equal to brute;
   cli      python3 -m simpleicp_tpu_torch on a gated 100 000-point xyz pair,
            as a subprocess on the card: its lines and its exported cloud;
   times    kernel times (CUDA events, warm L2) beside their bounds and the
-           plain versions' times; registration times; host reads; memory;
+           plain versions' times; the dilate gate's stages at 1.2M and 10M;
+           the per-launch and host-sort costs of the slab join's cost
+           model; registration times; host reads; memory;
   profile  one registration of each cell under torch.profiler: device busy
            and idle share, kernel launches, device time by kernel.
 Then the kernels line and, last, {"ok": true, "device": {...}}.
@@ -53,14 +63,20 @@ import tempfile
 import time
 from pathlib import Path
 
-PHASES = ("device", "build", "kernels", "main", "scale", "gated", "cli",
-          "times", "profile")
-KERNELS = ("match_transform", "knn_search", "nn_search")
-SOURCE = "simpleicp_tpu_torch/csrc/knn.cu"
+PHASES = ("device", "build", "kernels", "main", "scale", "gated", "dilate",
+          "cli", "times", "profile")
+KERNELS = ("match_transform", "knn_search", "nn_search", "dilate")
+SOURCES = {
+    "match_transform": "simpleicp_tpu_torch/csrc/knn.cu",
+    "knn_search": "simpleicp_tpu_torch/csrc/knn.cu",
+    "nn_search": "simpleicp_tpu_torch/csrc/knn.cu",
+    "dilate": "simpleicp_tpu_torch/csrc/dilate.cu",
+}
 REPLACES = {
     "match_transform": "simpleicp_tpu/ops/knn_pallas.py:197",
     "knn_search": "simpleicp_tpu/ops/knn_pallas.py:69",
     "nn_search": "simpleicp_tpu/ops/knn_pallas.py:41",
+    "dilate": "simpleicp_tpu/ops/dilate_pallas.py:154",
 }
 # Surface-sample sizes: the main path at the 100k scale of the repo's
 # default registrations, and the 1.34M airborne scale; the gated cells at
@@ -71,6 +87,13 @@ N_MAIN = 100_000
 N_SCALE = 1_340_000
 N_GATE_BIG = 1_000_000
 N_GATE_F64 = 20_000
+# The dilate gate: a 1.2M x 1.2M pair (1.44e12 pairs, above the 2^40 where
+# "auto" plans the dilate gate: an airborne or tiled-scan registration with
+# -o R), the gate alone at 10M x 10M, the scale it exists for, and a 200k
+# pair on which the band-ref compaction and the slab join are forced.
+N_DILATE = 1_200_000
+N_DILATE_BIG = 10_000_000
+N_DILATE_FORCED = 200_000
 # Gate radius: about 8 point spacings at the density of every cloud here
 # (100 000 points over 16 square units).
 GATE_RADIUS = 0.1
@@ -195,7 +218,8 @@ def phase_build():
 
 
 class Compare:
-    """Kernel-versus-plain comparisons; max abs d2 error per kernel."""
+    """Kernel-versus-plain comparisons; max abs error per kernel (d2 for
+    the nearest-neighbour kernels, word value for the dilate kernel)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -227,12 +251,52 @@ class Compare:
               f"{kernel} {case}: kernel and plain version differ "
               f"(idx equal {same_i}, d2 bit-equal {same_d}, err {err})")
 
+    def grids(self, case, occ, stencils):
+        """The dilate kernel, then its plain version, on one grid: the
+        number of differing words must be 0."""
+        from simpleicp_tpu_torch.ops.dilate_gate import (
+            dilate_packed_multi,
+            dilate_packed_multi_plain,
+        )
+
+        torch = self.torch
+        got = dilate_packed_multi(occ, stencils)
+        torch.cuda.synchronize()
+        want = dilate_packed_multi_plain(occ, stencils)
+        torch.cuda.synchronize()
+        differ, err = 0, 0.0
+        for g, w in zip(got, want):
+            ne = g != w
+            differ += int(ne.sum())
+            if bool(ne.any()):
+                u = (g[ne].long() & 0xFFFFFFFF) - (w[ne].long() & 0xFFFFFFFF)
+                err = max(err, float(u.abs().max()))
+        self.err["dilate"] = max(self.err["dilate"], err)
+        self.cases.append({"kernel": "dilate", "case": case,
+                           "grid": list(occ.shape), "entries": [len(st) for st in stencils],
+                           "differing_words": differ, "max_abs_err": err})
+        check(differ == 0, f"dilate {case}: {differ} words differ from the plain version")
+        return got
+
 
 def random_rigid(torch, rng, dtype, dev):
     from simpleicp_tpu_torch.ops.transform import rbp_to_H
 
     p = rng.uniform([-0.2, -0.2, -0.2, -1, -1, -1], [0.2, 0.2, 0.2, 1, 1, 1])
     return rbp_to_H(torch.tensor(p, dtype=dtype, device=dev))
+
+
+def sliced_nn_search(q, r, mask, limit):
+    """nn_search with the 1-NN wrapper's queries per launch lowered to
+    `limit`, so that it launches once per slice of that many queries."""
+    from simpleicp_tpu_torch.ops import knn, knn_cuda
+
+    saved = knn_cuda._MAX_QUERIES
+    knn_cuda._MAX_QUERIES = limit
+    try:
+        return knn.nn_search(q, r, ref_mask=mask)
+    finally:
+        knn_cuda._MAX_QUERIES = saved
 
 
 def phase_kernels(torch, cmp):
@@ -310,6 +374,9 @@ def phase_kernels(torch, cmp):
         run("nn_search", f"{tag} masked 20000x30000",
             lambda: knn.nn_search(q, r, ref_mask=mask),
             lambda: knn.nn_search_plain(q, r, ref_mask=mask))
+        run("nn_search", f"{tag} masked 20000x30000 in 5 launches of <= 4096 queries",
+            lambda: sliced_nn_search(q, r, mask, 4096),
+            lambda: knn.nn_search_plain(q, r, ref_mask=mask))
         none = torch.zeros(30_000, dtype=torch.bool, device=dev)
         run("nn_search", f"{tag} no valid ref",
             lambda: knn.nn_search(q, r, ref_mask=none),
@@ -323,17 +390,67 @@ def phase_kernels(torch, cmp):
         run("nn_search", f"{tag} tie lattice, masked",
             lambda: knn.nn_search(lq, lr, ref_mask=lat_mask),
             lambda: knn.nn_search_plain(lq, lr, ref_mask=lat_mask))
-    emit({"phase": "kernels", "tolerance": "indices equal, d2 bit-equal",
-          "cases": cmp.since(n0), "max_abs_err": cmp.err})
+    kernels_dilate(torch, cmp)
+    emit({"phase": "kernels", "tolerance": "indices equal, d2 bit-equal; "
+          "dilate: 0 differing words", "cases": cmp.since(n0), "max_abs_err": cmp.err})
 
 
-def _register(torch, X_fix, X_mov, dtype, device, gate=None):
+def kernels_dilate(torch, cmp):
+    """The dilate kernel against its plain version: the CPU tests' cases
+    (synthetic stencils, one stencil, an empty one, carries across words,
+    an unstructured stencil), a grid with every bit set, and the real
+    stencils of plans at cell_div 16, 8, 4 and 2."""
+    import numpy as np
+
+    from simpleicp_tpu_torch.ops.dilate_gate import _pack_occupancy_device, plan_dilate_gate
+
+    rng = np.random.default_rng(SEED + 20)
+
+    def T(words):
+        return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to("cuda")
+
+    def occ(wz, nx, ny, density=0.02):
+        words = rng.random((wz, nx, ny)) < density
+        return np.where(words, rng.integers(0, 2**32, (wz, nx, ny), dtype=np.uint32),
+                        np.uint32(0))
+
+    a = tuple((dx, dy, 4 - max(abs(dx), abs(dy)))
+              for dx in range(-2, 3) for dy in range(-2, 3))
+    b = ((0, 0, 3), (1, -1, 0), (-2, 0, 1))
+    for shape in ((2, 40, 48), (3, 17, 33), (1, 64, 130), (9, 300, 257)):
+        cmp.grids(f"synthetic {shape}", T(occ(*shape)), [a, b])
+    cmp.grids("one stencil", T(occ(3, 70, 45)), [b])
+    cmp.grids("an empty stencil", T(occ(2, 20, 20)), [(), a])
+    carry = np.zeros((3, 9, 10), np.uint32)
+    carry[0, 0, 0] = carry[2, 8, 9] = 1 | (1 << 31)
+    carry[1, 4, 5], carry[2, 4, 5], carry[0, 8, 0] = 1 << 31, 1, 1 << 31
+    for z in (1, 17, 31):
+        cmp.grids(f"carries z={z}", T(carry), [((0, 0, z), (1, 0, 0), (0, -1, 0)),
+                                               ((0, 0, z), (-1, 1, z // 2))])
+    odd = tuple((int(dx), int(dy), int(z)) for dx, dy, z in
+                zip(rng.integers(-6, 7, 40), rng.integers(-6, 7, 40), rng.integers(0, 32, 40)))
+    cmp.grids("unstructured stencil", T(occ(4, 50, 61, 0.05)), [odd, odd[:7]])
+    cmp.grids("every bit set", T(np.full((3, 100, 90), 0xFFFFFFFF, np.uint32)), [a, b])
+    pts = torch.as_tensor(rng.random((20_000, 3)) * np.array([8.0, 6.0, 4.0]),
+                          dtype=torch.float32, device="cuda")
+    for div in (16, 8, 4, 2):
+        plan = plan_dilate_gate(None, pts.cpu().numpy(), 1.0, cell_div=div)
+        words = _pack_occupancy_device(pts, plan=plan).reshape(plan.wz, *plan.dims[:2])
+        cmp.grids(f"plan cell_div {div}", words, [plan.in_offsets, plan.poss_offsets])
+        full = torch.full_like(words, -1)
+        cmp.grids(f"plan cell_div {div}, every bit set", full,
+                  [plan.in_offsets, plan.poss_offsets])
+
+
+def _register(torch, X_fix, X_mov, dtype, device, gate=None, method="auto"):
     """icp_register with the default config, or with the overlap gate of
-    radius ``gate``; returns (result, final loop state)."""
+    radius ``gate`` and gate_method ``method``; returns (result, final loop
+    state)."""
     from simpleicp_tpu_torch import IcpConfig
     from simpleicp_tpu_torch.models.icp import _icp_register
 
-    cfg = IcpConfig() if gate is None else IcpConfig(max_overlap_distance=gate)
+    cfg = (IcpConfig() if gate is None
+           else IcpConfig(max_overlap_distance=gate, gate_method=method))
     return _icp_register(
         X_fix, X_mov, cfg, rbp_observed_values=None,
         rbp_observation_weights=None, normals_fix=None, planarity_fix=None,
@@ -341,25 +458,39 @@ def _register(torch, X_fix, X_mov, dtype, device, gate=None):
     )
 
 
-def counted_run(torch, X_fix, X_mov, dtype, gate=None):
+def reset_counts():
+    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
+
+    knn_cuda.reset_launch_counts()
+    dilate_cuda.reset_launch_counts()
+
+
+def read_counts():
+    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
+
+    return {**knn_cuda.LAUNCHES, **dilate_cuda.LAUNCHES}
+
+
+def counted_run(torch, X_fix, X_mov, dtype, gate=None, gate_launches=None):
     """One registration on the card with every count set to 0 just before
     and read just after: one k-NN launch, one match launch per iteration,
-    and one gate (1-NN) launch when gated, none otherwise."""
-    from simpleicp_tpu_torch.ops import knn_cuda
+    and the gate's launches (``gate_launches``; by default one 1-NN launch
+    when gated, none otherwise)."""
     from simpleicp_tpu_torch.utils import sync
 
     torch.cuda.synchronize()
-    knn_cuda.reset_launch_counts()
+    reset_counts()
     sync.reset_host_reads()
     t0 = time.perf_counter()
     res, carry = _register(torch, X_fix, X_mov, dtype, "cuda", gate)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(knn_cuda.LAUNCHES)
+    launches = read_counts()
     reads = sync.host_reads()
     n_it = int(res.n_iterations)
-    want = {"match_transform": n_it, "knn_search": 1,
-            "nn_search": 0 if gate is None else 1}
+    if gate_launches is None:
+        gate_launches = {"nn_search": 0 if gate is None else 1, "dilate": 0}
+    want = {"match_transform": n_it, "knn_search": 1, **gate_launches}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     return res, carry, launches, reads, seconds
 
@@ -547,6 +678,140 @@ def phase_gated(torch, cmp):
     return out["float32_100k"]["launches"], big
 
 
+def gate_inputs(torch, X_fix, X_mov):
+    """The fixed cloud and the movable cloud under the initial transform
+    (identity, as the registration applies it) on the card, float32."""
+    from simpleicp_tpu_torch.ops.transform import apply_H, rbp_to_H
+
+    Xf = torch.as_tensor(X_fix, dtype=torch.float32, device="cuda")
+    Xm = torch.as_tensor(X_mov, dtype=torch.float32, device="cuda")
+    return Xf, apply_H(Xm, rbp_to_H(torch.zeros(6, dtype=torch.float32, device="cuda")))
+
+
+def plan_of(Xm0, radius=GATE_RADIUS):
+    from simpleicp_tpu_torch.ops.dilate_gate import bbox_of, plan_dilate_gate
+
+    lo, hi = bbox_of(Xm0).cpu().numpy()
+    return plan_dilate_gate(None, None, radius, bbox=(lo, hi))
+
+
+def plan_summary(plan, radius=GATE_RADIUS):
+    return {"cell_div": round(radius * plan.inv_cell), "dims": list(plan.dims),
+            "wz": plan.wz, "n_words": plan.n_words,
+            "entries": [len(plan.in_offsets), len(plan.poss_offsets)],
+            "z_rad_max": max(z for _, _, z in plan.poss_offsets)}
+
+
+def gate_vs_brute(torch, Xf, Xm0, plan, what):
+    """The dilate gate alone, with every count set to 0 just before and
+    read just after, and the brute 1-NN mask on the same inputs: they must
+    be equal bit for bit."""
+    from simpleicp_tpu_torch.ops import knn
+    from simpleicp_tpu_torch.ops.dilate_gate import overlap_mask_dilate
+
+    torch.cuda.synchronize()
+    reset_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    mask = overlap_mask_dilate(Xf, Xm0, GATE_RADIUS, plan, stats=stats)
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    launches = read_counts()
+    t0 = time.perf_counter()
+    d2, _ = knn.nn_search(Xf, Xm0)
+    brute = d2 <= torch.tensor(GATE_RADIUS, dtype=Xf.dtype, device="cuda") ** 2
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    differ = int((mask != brute).sum())
+    check(differ == 0, f"{what}: the dilate mask differs from the brute mask "
+          f"at {differ} points")
+    return {"n_fix": Xf.shape[0], "n_mov": Xm0.shape[0], "plan": plan_summary(plan),
+            "branches": stats, "gate_launches": {k: v for k, v in launches.items() if v},
+            "gate_s": gate_s, "brute_mask_s": brute_s, "kept": int(mask.sum()),
+            "mask_differs_from_brute": differ}
+
+
+def phase_dilate(torch, cmp):
+    """The dilate gate: (a) a 1.2M x 1.2M registration with gate_method
+    "auto", (b) the gate alone at 10M x 10M, (c) the band-ref compaction
+    and the slab join forced at 200k; every mask against the brute one."""
+    from simpleicp_tpu_torch import IcpConfig
+    from simpleicp_tpu_torch.models import icp
+    from simpleicp_tpu_torch.ops import dilate_gate as dg
+    from simpleicp_tpu_torch.ops.dilate_gate import _pack_occupancy_device
+
+    X_fix, X_mov, t, x0 = partial_pair(N_DILATE, SEED + 8, N_DILATE / N_MAIN)
+    Xf, Xm0 = gate_inputs(torch, X_fix, X_mov)
+    plan = plan_of(Xm0)
+    cfg = icp._resolve_engines(IcpConfig(max_overlap_distance=GATE_RADIUS),
+                               N_DILATE, N_DILATE, fixed_prep=None)
+    plan_r = icp._resolve_gate(cfg, N_DILATE, N_DILATE,
+                               lambda: dg.bbox_of(Xm0).cpu().numpy())
+    check(plan_r is not None and plan_r == plan,
+          f"gate_method 'auto' at {N_DILATE} x {N_DILATE} did not plan the dilate gate")
+    alone = gate_vs_brute(torch, Xf, Xm0, plan, "dilate 1.2M")
+    n0 = len(cmp.cases)
+    occ = _pack_occupancy_device(Xm0, plan=plan).reshape(plan.wz, *plan.dims[:2])
+    cmp.grids("the 1.2M pair's own grid", occ, [plan.in_offsets, plan.poss_offsets])
+    cmp.grids("the 1.2M pair's own grid, POSS alone", occ, [plan.poss_offsets])
+    del occ
+    gl = {"nn_search": alone["gate_launches"].get("nn_search", 0),
+          "dilate": alone["gate_launches"]["dilate"]}
+    torch.cuda.reset_peak_memory_stats()
+    res, _, launches, reads, seconds = counted_run(torch, X_fix, X_mov, torch.float32,
+                                                   GATE_RADIUS, gate_launches=gl)
+    peak = torch.cuda.max_memory_allocated()
+    res_b, _ = _register(torch, X_fix, X_mov, torch.float32, "cuda", GATE_RADIUS, "brute")
+    for f in ("sel_idx", "sel_valid", "n_iterations", "H"):
+        check(torch.equal(getattr(res, f), getattr(res_b, f)),
+              f"dilate 1.2M: {f} differs from the brute-gated run")
+    emit({"phase": "dilate", "part": "a", "radius": GATE_RADIUS, "float32_1.2M": {
+        "resolved": "dilate", "gate_alone": alone, "n_iterations": int(res.n_iterations),
+        "translation_err": check_recovery(res, t, "dilate 1.2M"),
+        "selected_x_min": check_overlap(res, X_fix, x0, "dilate 1.2M"),
+        "equals_brute_run": ["sel_idx", "sel_valid", "n_iterations", "H"],
+        "launches": launches, "host_reads": reads, "first_run_s": seconds,
+        "max_memory_allocated": peak, "kernel_vs_plain": cmp.since(n0)}})
+    del Xf, Xm0
+
+    A10, B10, _, _ = partial_pair(N_DILATE_BIG, SEED + 9, N_DILATE_BIG / N_MAIN)
+    Xf, Xm0 = gate_inputs(torch, A10, B10)
+    plan10 = plan_of(Xm0)
+    check(plan10 is not None, "no dilate plan at 10M")
+    torch.cuda.reset_peak_memory_stats()
+    big = gate_vs_brute(torch, Xf, Xm0, plan10, "dilate 10M")
+    big["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    n0 = len(cmp.cases)
+    occ = _pack_occupancy_device(Xm0, plan=plan10).reshape(plan10.wz, *plan10.dims[:2])
+    cmp.grids("the 10M pair's own grid", occ, [plan10.in_offsets, plan10.poss_offsets])
+    big["kernel_vs_plain"] = cmp.since(n0)
+    del Xf, Xm0, occ
+    emit({"phase": "dilate", "part": "b", "float32_10M_gate": big})
+
+    A, B, _, _ = partial_pair(N_DILATE_FORCED, SEED + 10, N_DILATE_FORCED / N_MAIN)
+    Xf, Xm0 = gate_inputs(torch, A, B)
+    planf = plan_of(Xm0)
+    forced = {}
+    for label, consts in (("compaction", {"_DIRECT_SWEEP_MAX": 0}),
+                          ("slab join", {"_DIRECT_SWEEP_MAX": 0, "_SLAB_SWEEP_MIN": 0,
+                                         "_SLAB_CHUNK_OPTS": (1024, 4096),
+                                         "_SLAB1_MIN": 256})):
+        saved = {k: getattr(dg, k) for k in consts}
+        for k, v in consts.items():
+            setattr(dg, k, v)
+        try:
+            forced[label] = gate_vs_brute(torch, Xf, Xm0, planf, f"dilate forced {label}")
+        finally:
+            for k, v in saved.items():
+                setattr(dg, k, v)
+        st = forced[label]["branches"]
+        check(st["compaction"] and (label != "slab join" or
+                                    (st["sweep"] == "slab join" and st["slab_blocks"] > 1)),
+              f"forced {label}: the branch did not run ({st})")
+    emit({"phase": "dilate", "part": "c", "float32_200k_forced": forced})
+    return {"launches": launches, "clouds": (X_fix, X_mov), "clouds10M": (A10, B10)}
+
+
 def phase_cli(torch):
     """The CLI as a user starts it, in a subprocess on the card: a gated
     100k pair written as xyz files, exported cloud read back."""
@@ -625,7 +890,87 @@ def bound_ms(kernel, n_q, n_r, dtype_bytes, k=1):
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_times(torch, scale_clouds, gated_big, cells):
+# Hopper SM: 64 INT32 lanes; 132 SMs at the H100 SXM's 1.98 GHz boost clock
+# (NVIDIA data sheet and Hopper white paper, 700 W). A lane issues one LOP3
+# per clock: any boolean function of three 32-bit words, so up to two ORs.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def dilate_bound_ms(n_words, stencil_sizes):
+    """Least time (ms) an H100 SXM could take for one dilation: the larger
+    of the bytes (the grid read once, each output grid written once, the
+    (dx, dy) table read once) over 3.35 TB/s and the operations over the
+    INT32 rate. An output word of a stencil of n entries ORs n words
+    together: ceil((n - 1) / 2) three-input ORs (LOP3)."""
+    n_entries = sum(stencil_sizes)
+    nbytes = 4.0 * n_words * (1 + len(stencil_sizes)) + 8.0 * n_entries
+    lop3 = sum(max(0, -(-(n - 1) // 2)) for n in stencil_sizes)
+    t_bytes, t_ops = nbytes / 3.35e12, n_words * lop3 / INT32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gate_stages(torch, X_fix, X_mov):
+    """Seconds of each stage of the dilate gate on one pair (the device
+    synchronized at each stage's end), after a warm-up call."""
+    from simpleicp_tpu_torch.ops.dilate_gate import (
+        bbox_of,
+        overlap_mask_dilate,
+        plan_dilate_gate,
+    )
+
+    Xf, Xm0 = gate_inputs(torch, X_fix, X_mov)
+    overlap_mask_dilate(Xf, Xm0, GATE_RADIUS, plan_of(Xm0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lo, hi = bbox_of(Xm0).cpu().numpy()
+    t1 = time.perf_counter()
+    plan = plan_dilate_gate(None, None, GATE_RADIUS, bbox=(lo, hi))
+    t2 = time.perf_counter()
+    stats = {}
+    overlap_mask_dilate(Xf, Xm0, GATE_RADIUS, plan, stats=stats)
+    t3 = time.perf_counter()
+    return {"bbox_s": t1 - t0, "plan_s": t2 - t1,
+            **{k: v for k, v in stats.items() if k.endswith("_s")},
+            "gate_total_s": t3 - t0, "band": stats["band"],
+            "refs_kept": stats["refs_kept"], "sweep": stats["sweep"]}
+
+
+def slab_rates(torch):
+    """The slab join cost model's two host rates on this machine: seconds
+    per exact-sweep launch (a 512-point block against a 4 096-ref run:
+    gathers, the 1-NN launch, the compare and the scatter), and numpy's
+    stable argsort per element (1M float32 keys)."""
+    import numpy as np
+
+    from simpleicp_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(SEED + 30)
+    Xf = torch.as_tensor(rng.random((100_000, 3)), dtype=torch.float32, device="cuda")
+    R = torch.as_tensor(rng.random((100_000, 3)), dtype=torch.float32, device="cuda")
+    q = torch.as_tensor(rng.choice(100_000, 512, replace=False), device="cuda")
+    out = torch.zeros(100_000, dtype=torch.bool, device="cuda")
+    r2 = torch.tensor(GATE_RADIUS, dtype=torch.float32, device="cuda") ** 2
+
+    def block(j0):
+        out[q] = knn.min_dist_sq(Xf[q], R[j0:j0 + 4096]) <= r2
+
+    for j in range(5):
+        block(j)
+    torch.cuda.synchronize()
+    n = 300
+    t0 = time.perf_counter()
+    for j in range(n):
+        block(j * 100)
+    torch.cuda.synchronize()
+    call_s = (time.perf_counter() - t0) / n
+    keys = rng.random(1_000_000).astype(np.float32)
+    t0 = time.perf_counter()
+    np.argsort(keys, kind="stable")
+    sort_s = (time.perf_counter() - t0) / keys.size
+    return {"call_s": call_s, "host_sort_s_per_element": sort_s}
+
+
+def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
     import numpy as np
 
     from simpleicp_tpu_torch.ops import knn
@@ -674,6 +1019,35 @@ def phase_times(torch, scale_clouds, gated_big, cells):
               "float32", "nn_search": {"ms": cuda_ms(torch, lambda: knn.nn_search(Xf, Xm), 3),
                                        "bound_ms": b, "bound_by": by}})
 
+    dilate_row = None
+    if dil is not None:
+        from simpleicp_tpu_torch.ops.dilate_gate import (
+            _pack_occupancy_device,
+            dilate_packed_multi,
+            dilate_packed_multi_plain,
+        )
+
+        Xf, Xm0 = gate_inputs(torch, *dil["clouds"])
+        plan = plan_of(Xm0)
+        occ = _pack_occupancy_device(Xm0, plan=plan).reshape(plan.wz, *plan.dims[:2])
+        del Xf, Xm0
+        rows = {}
+        for label, st in (("IN+POSS", [plan.in_offsets, plan.poss_offsets]),
+                          ("POSS", [plan.poss_offsets])):
+            b, by = dilate_bound_ms(plan.n_words, [len(o) for o in st])
+            rows[label] = {
+                "ms": cuda_ms(torch, lambda: dilate_packed_multi(occ, st), 20),
+                "plain_ms": cuda_ms(torch, lambda: dilate_packed_multi_plain(occ, st), 1),
+                "bound_ms": b, "bound_by": by, "library_ms": None}
+        del occ
+        dilate_row = rows["IN+POSS"]
+        emit({"phase": "times", "what": f"dilate kernel at the {N_DILATE} x {N_DILATE} "
+              "pair's plan (warm L2); the gate's stages at 1.2M and 10M; the slab "
+              "join cost model's host rates", "plan": plan_summary(plan), "dilate": rows,
+              "gate_stages": {"1.2M": gate_stages(torch, *dil["clouds"]),
+                              "10M": gate_stages(torch, *dil["clouds10M"])},
+              "slab_cost_model": slab_rates(torch)})
+
     reg = {}
     clouds = {"100k": (X_fix, X_mov, None, 5)}
     if scale_clouds is not None:
@@ -683,6 +1057,8 @@ def phase_times(torch, scale_clouds, gated_big, cells):
         clouds["gated 100k"] = (G[0], G[1], GATE_RADIUS, 5)
     if gated_big is not None:
         clouds["gated 1M"] = (gated_big[0], gated_big[1], GATE_RADIUS, 3)
+    if dil is not None:
+        clouds["dilate 1.2M"] = (*dil["clouds"], GATE_RADIUS, 3)
     for label, (A, B, gate, reps) in clouds.items():
         Af = torch.as_tensor(A, dtype=torch.float32, device=dev)
         Bf = torch.as_tensor(B, dtype=torch.float32, device=dev)
@@ -704,18 +1080,20 @@ def phase_times(torch, scale_clouds, gated_big, cells):
                       "gate_radius": gate,
                       "input": "float32 tensors already on the card"}
     emit({"phase": "times", "what": "icp_register, default config (gated: "
-          f"max_overlap_distance={GATE_RADIUS}), float32", "registration": reg})
-    return kernels["float32"]
+          f"max_overlap_distance={GATE_RADIUS}, gate_method auto), float32",
+          "registration": reg})
+    return {**kernels["float32"], "dilate": dilate_row}
 
 
 # Device-kernel names of each port kernel's two passes (no name is a
 # substring of another).
 KERNEL_NAMES = {"match_transform_scan": "match_transform", "nn_reduce": "match_transform",
                 "knn_scan": "knn_search", "knn_merge": "knn_search",
-                "nn_search_scan": "nn_search", "nn_search_reduce": "nn_search"}
+                "nn_search_scan": "nn_search", "nn_search_reduce": "nn_search",
+                "dilate_kernel": "dilate"}
 
 
-def phase_profile(torch, scale_clouds, gated_big, cells):
+def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
     """Where the time of one float32 registration goes: host wall time,
     the device's busy time (sum of kernel durations; one stream, so they
     do not overlap) and idle share, the number of kernel launches, and the
@@ -734,6 +1112,8 @@ def phase_profile(torch, scale_clouds, gated_big, cells):
         clouds["gated 100k"] = (G[0], G[1], GATE_RADIUS)
     if gated_big is not None:
         clouds["gated 1M"] = (gated_big[0], gated_big[1], GATE_RADIUS)
+    if dil is not None:
+        clouds["dilate 1.2M"] = (*dil["clouds"], GATE_RADIUS)
     out = {}
     for label, (A, B, gate) in clouds.items():
         Af = torch.as_tensor(A, dtype=torch.float32, device=dev)
@@ -760,6 +1140,8 @@ def phase_profile(torch, scale_clouds, gated_big, cells):
         check(busy_ms > 0, f"profile {label}: no device time was traced")
         if gate is not None:
             check(port["nn_search"] > 0, f"profile {label}: no gate kernel traced")
+        if label.startswith("dilate"):
+            check(port["dilate"] > 0, f"profile {label}: no dilate kernel traced")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
         out[label] = {
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -770,7 +1152,7 @@ def phase_profile(torch, scale_clouds, gated_big, cells):
             "top_device_ms": [[k, v[0], v[1]] for k, v in top],
         }
     emit({"phase": "profile", "what": "one float32 registration, default config "
-          f"(gated: max_overlap_distance={GATE_RADIUS})", "cells": out})
+          f"(gated: max_overlap_distance={GATE_RADIUS}, gate_method auto)", "cells": out})
 
 
 def main(argv=None) -> int:
@@ -803,20 +1185,23 @@ def main(argv=None) -> int:
     scale_clouds = phase_scale(torch, cmp) if "scale" in phases else None
     gated_launches, gated_big = (phase_gated(torch, cmp) if "gated" in phases
                                  else (None, None))
+    dil = phase_dilate(torch, cmp) if "dilate" in phases else None
     errs = cmp.err if "kernels" in phases else None
     if "cli" in phases:
         phase_cli(torch)
-    times = (phase_times(torch, scale_clouds, gated_big, phases)
+    times = (phase_times(torch, scale_clouds, gated_big, phases, dil)
              if "times" in phases else None)
     if "profile" in phases:
-        phase_profile(torch, scale_clouds, gated_big, phases)
+        phase_profile(torch, scale_clouds, gated_big, phases, dil)
 
-    if None not in (errs, main_info, gated_launches, times):
+    if None not in (errs, main_info, gated_launches, times, dil):
         # Launches of each kernel in the run of its path: the ungated main
-        # path for the match and k-NN kernels, the gated path for the gate.
-        launches = {**main_info[0], "nn_search": gated_launches["nn_search"]}
+        # path for the match and k-NN kernels, the brute-gated path for the
+        # 1-NN gate, the dilate-gated 1.2M registration for the dilation.
+        launches = {**main_info[0], "nn_search": gated_launches["nn_search"],
+                    "dilate": dil["launches"]["dilate"]}
         emit({"kernels": [
-            {"name": name, "route": "cuda", "source": SOURCE,
+            {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name], "launches": launches[name],
              "max_abs_err": errs[name], **times[name]}
             for name in KERNELS

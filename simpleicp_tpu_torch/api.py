@@ -307,8 +307,8 @@ class SimpleICP:
         translation is observed). Settings that are not ported yet raise
         NotImplementedError naming their ROADMAP item: ``mesh`` and
         ``num_devices`` (sharded runs), ``dispatch="chunked"``,
-        ``warm_start``, ``approx_knn``, and the grid and dilate gate and
-        matcher engines.
+        ``warm_start``, ``approx_knn``, and the grid gate and matcher
+        engines.
 
         Returns:
             (H, X_mov_transformed, rbp, distance_residuals)

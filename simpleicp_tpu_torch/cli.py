@@ -10,7 +10,7 @@ max_overlap_distance disables the gate", the ``--preset`` table and the
 ``--probe-timeout``; ``--dtype`` chooses float32 (the default) or float64.
 Flags whose values are not ported yet fail with their ROADMAP item:
 ``--num-devices``, ``--dispatch chunked``, ``--warm-start``,
-``--approx-knn`` and the grid and dilate engines.
+``--approx-knn`` and the grid engines.
 """
 
 from __future__ import annotations
@@ -110,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--gate-method", choices=("auto", "brute", "grid", "dilate"),
         default="auto",
         help="overlap-gate engine: auto is the brute 1-NN gate up to 2^40 "
-             "fixed x movable pairs; grid and dilate are not ported yet",
+             "fixed x movable pairs and the dilate gate above; grid is not "
+             "ported yet",
     )
     p.add_argument(
         "--match-method", choices=("auto", "brute", "grid"), default="auto",

@@ -53,9 +53,12 @@ class IcpConfig:
         record_trajectory: per-iteration trajectory buffers (max_iterations
             slots instead of one).
         gate_method / grid_cell_cap: overlap-gate engine, read when the gate
-            is on. "brute" is the 1-NN gate; "auto" resolves to it up to
-            2^40 fixed x movable pairs, as in the JAX package. "grid",
-            "dilate" and "auto" above 2^40 are not ported yet and raise.
+            is on. "brute" is the 1-NN gate; "dilate" the dilated-occupancy
+            gate (the same mask, for large clouds); "auto" resolves as in
+            the JAX package: brute up to 2^40 fixed x movable pairs, dilate
+            above when its grid fits, else brute up to 2^41 pairs. "grid",
+            and "auto" above 2^41 pairs without a dilate plan, are not
+            ported yet and raise.
         match_method: in-loop matcher. "auto" resolves as in the JAX
             package: "brute", or "grid" above 2^38 pairs per iteration when
             a radius is available; "grid" is not ported yet and raises.

@@ -2,9 +2,13 @@
 
 Pipeline of ``icp_register``:
   1. initial H from the observed rigid-body parameters;
-  2. overlap gate (finite ``max_overlap_distance``): the 1-NN of every fixed
-     point among the movable cloud moved by the initial H (the 1-NN kernel
-     on the card); the fixed points within the radius survive;
+  2. overlap gate (finite ``max_overlap_distance``): the fixed points within
+     the radius of the movable cloud moved by the initial H survive. The
+     brute gate takes the 1-NN of every fixed point (the 1-NN kernel on the
+     card); the dilate gate (``gate_method="dilate"``, and ``"auto"`` above
+     2^40 pairs) classifies them on a dilated occupancy grid (the dilate
+     kernel on the card) and resolves only a thin band exactly; both give
+     the same mask;
   3. fixed-count selection: round(linspace) over the indices of the fixed
      points (of the survivors when gated);
   4. normals: the user's, gathered at the selection, or k-NN neighbourhoods
@@ -17,9 +21,9 @@ Pipeline of ``icp_register``:
 
 The loop runs on the host and keeps its state on the device; it reads one
 flag back per ICP iteration (converged or failed) and one per Gauss-Newton
-step, and the gate reads back the number of survivors (``utils/sync.py``
-counts them). Its results equal those of the JAX package's
-``lax.while_loop`` field for field: the state it keeps on an error, the
+step, and the gate reads back the number of survivors (the dilate gate
+also its bounding box and band; ``utils/sync.py`` counts them). Its
+results equal those of the JAX package's ``lax.while_loop`` field for field: the state it keeps on an error, the
 iteration it stops at, the buffers it fills.
 """
 
@@ -32,7 +36,8 @@ import numpy as np
 import torch
 
 from ..config import IcpConfig
-from ..ops.knn import knn_search, match_transform, nn_search_auto
+from ..ops.dilate_gate import bbox_of, overlap_mask_dilate, plan_dilate_gate
+from ..ops.knn import knn_search, match_transform, nn_search
 from ..ops.normals import estimate_normals_from_neighborhoods
 from ..ops.stats import masked_mad, masked_mean, masked_median, masked_std, pct_change
 from ..ops.transform import (
@@ -42,7 +47,7 @@ from ..ops.transform import (
     rotation_matrix_to_euler_angles,
 )
 from ..utils.device import resolve
-from ..utils.sync import read_flag, read_nonzero
+from ..utils.sync import read_array, read_flag, read_nonzero
 from .solver import estimate_uncertainties, gn_solve, linearized_solve
 
 # Error codes of IcpResult.error_code.
@@ -51,8 +56,11 @@ ERR_NO_OVERLAP = 1
 ERR_TOO_FEW_CORRESPONDENCES = 2
 
 # Largest gate (nf x nm pairs) that gate_method="auto" sends to the brute
-# gate, as in the JAX package; above it that package plans the dilate gate.
+# gate, as in the JAX package; above it the dilate gate is planned.
 GATE_AUTO_BRUTE_PAIRS = 2**40
+# Without a dilate plan, "auto" stays the brute gate up to this many pairs;
+# above it the JAX package picks the grid gate, which is not ported.
+GATE_AUTO_GRID_PAIRS = 2**41
 # match_method="auto" picks the grid matcher above this many pairs per
 # iteration when a radius is available, as in the JAX package.
 MATCH_AUTO_PAIR_BUDGET = 2**38
@@ -194,11 +202,20 @@ def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig):
         host_idx, valid_np = _static_ungated_selection(Xf.shape[0], C)
         return (torch.as_tensor(host_idx, device=dev),
                 torch.as_tensor(valid_np, device=dev), ERR_OK)
-    # The initial transform applies before the gate.
-    d2, _ = nn_search_auto(Xf, apply_H(Xm, H0))
-    # The radius is cast to the coordinate dtype before it is squared.
-    r = torch.tensor(cfg.max_overlap_distance, dtype=Xf.dtype, device=dev)
-    compacted = read_nonzero(d2 <= r ** 2)
+    # The initial transform applies before the gate. One transformed cloud
+    # serves the dilate gate's bounding box, its occupancy and its exact
+    # sweeps, so its mask is the brute gate's bit for bit.
+    Xm0 = apply_H(Xm, H0)
+    plan = _resolve_gate(cfg, Xf.shape[0], Xm.shape[0],
+                         lambda: read_array(bbox_of(Xm0)))
+    if plan is not None:
+        sel_mask = overlap_mask_dilate(Xf, Xm0, cfg.max_overlap_distance, plan)
+    else:
+        d2, _ = nn_search(Xf, Xm0)
+        # The radius is cast to the coordinate dtype before it is squared.
+        r = torch.tensor(cfg.max_overlap_distance, dtype=Xf.dtype, device=dev)
+        sel_mask = d2 <= r ** 2
+    compacted = read_nonzero(sel_mask)
     error = ERR_OK
     if compacted.shape[0] == 0:
         # No fixed point survives: the selection runs over all of them and
@@ -446,7 +463,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 ITEM_GRID = "item 11 (gridhash)"
-ITEM_DILATE = "item 13 (dilate gate)"
 
 
 def _resolve_engines(cfg: IcpConfig, nf: int, nm: int, *,
@@ -480,15 +496,40 @@ def _resolve_engines(cfg: IcpConfig, nf: int, nm: int, *,
     if cfg.overlap_enabled:
         if gate == "grid":
             raise not_ported("gate_method='grid'", ITEM_GRID)
-        if gate == "dilate":
-            raise not_ported("gate_method='dilate'", ITEM_DILATE)
-        if gate == "auto" and nf * nm > GATE_AUTO_BRUTE_PAIRS:
-            raise not_ported(
-                f"gate_method='auto' at {nf} x {nm} pairs (above 2^40 the JAX "
-                "package plans the dilate gate)", ITEM_DILATE)
-        gate = "brute"
+        if gate == "auto" and nf * nm <= GATE_AUTO_BRUTE_PAIRS:
+            gate = "brute"
+        # "dilate", and "auto" above 2^40 pairs, are resolved by the plan
+        # (_resolve_gate), which needs the transformed cloud's bounding box.
     return dataclasses.replace(cfg, match_method=match, gate_method=gate,
                                dispatch="monolithic")
+
+
+def _resolve_gate(cfg: IcpConfig, nf: int, nm: int, bbox_fn):
+    """The dilate plan of an enabled gate whose method ``_resolve_engines``
+    resolved, or None for the brute gate, as the JAX package resolves it:
+    "brute" stays; "dilate", and "auto" (above 2^40 pairs), plan the dilate
+    gate over the bounding box ``bbox_fn()`` gives ((2, 3) lo/hi rows, read
+    from the device once). Without a plan, "dilate" raises the JAX
+    package's ValueError and "auto" becomes the brute gate up to 2^41 pairs
+    and the grid gate above, which raises."""
+    gate = cfg.gate_method
+    if gate == "brute":
+        return None
+    lo, hi = bbox_fn()
+    plan = plan_dilate_gate(None, None, cfg.max_overlap_distance, bbox=(lo, hi))
+    if plan is not None:
+        return plan
+    if gate == "dilate":
+        raise ValueError(
+            "gate_method='dilate' needs a dense cell grid over the "
+            "joint bounding box; this cloud pair exceeds the cell "
+            "budget — use 'grid' or 'auto'."
+        )
+    if nf * nm > GATE_AUTO_GRID_PAIRS:
+        raise not_ported(
+            f"gate_method='auto' at {nf} x {nm} pairs with no dilate plan "
+            "(the JAX package picks the grid gate)", ITEM_GRID)
+    return None
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:

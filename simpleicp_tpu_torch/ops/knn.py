@@ -133,19 +133,6 @@ def nn_search(queries: torch.Tensor, refs: torch.Tensor, *,
     return nn_search_plain(queries, refs, ref_mask)
 
 
-def nn_search_auto(queries: torch.Tensor, refs: torch.Tensor, *,
-                   ref_tile: int = 4096, query_tile: int = 2048,
-                   ref_mask: Optional[torch.Tensor] = None,
-                   use_pallas: bool = True
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``nn_search`` under the JAX package's signature of the gate's
-    dispatcher. ``ref_tile``, ``query_tile`` and ``use_pallas`` choose TPU
-    tiles and kernels there and change no result by contract, so they are
-    accepted and ignored: this is always ``nn_search``."""
-    del ref_tile, query_tile, use_pallas
-    return nn_search(queries, refs, ref_mask=ref_mask)
-
-
 def knn_search(queries: torch.Tensor, refs: torch.Tensor, k: int, *,
                ref_mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -182,7 +169,14 @@ def match_transform(queries: torch.Tensor, refs: torch.Tensor,
     return match_transform_plain(queries, refs, H)
 
 
-def min_dist_sq(queries: torch.Tensor, refs: torch.Tensor, **kw) -> torch.Tensor:
-    """Squared distance from each query to its nearest reference point."""
-    d2, _ = nn_search(queries, refs, **kw)
+def min_dist_sq(queries: torch.Tensor, refs: torch.Tensor, *,
+                ref_tile: int = 4096, query_tile: int = 2048,
+                layout: str = "qt",
+                ref_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Squared distance from each query to its nearest reference point,
+    under the JAX package's signature. ``ref_tile``, ``query_tile`` and
+    ``layout`` choose TPU tiles there and change no result, so they are
+    accepted and ignored."""
+    del ref_tile, query_tile, layout
+    d2, _ = nn_search(queries, refs, ref_mask=ref_mask)
     return d2

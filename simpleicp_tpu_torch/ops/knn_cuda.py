@@ -3,9 +3,11 @@
 Each wrapper checks its tensors, allocates the outputs and the partials
 scratch with ``torch.empty``, launches the kernel's two passes on PyTorch's
 current stream and raises if ``cudaGetLastError`` reports a failure. It
-never synchronizes and never falls back to a plain version. Each call adds
-one to its kernel's entry in ``LAUNCHES``; nothing else touches the counts
-but ``reset_launch_counts``.
+never synchronizes and never falls back to a plain version. Each launch
+adds one to its kernel's entry in ``LAUNCHES``; nothing else touches the
+counts but ``reset_launch_counts``. A launch's grid holds at most
+``_MAX_QUERIES`` queries: the 1-NN wrapper launches once per slice of that
+many, the other two raise above it.
 
 The library is built by ``_build.build`` at the first call, not at
 import, so importing this module needs neither nvcc nor a card.
@@ -31,6 +33,7 @@ _SM_COUNT_H100 = 132
 # on each of the H100's SMs.
 _TARGET_BLOCKS = 2 * 8 * _SM_COUNT_H100
 _MIN_CHUNK = 32     # fewest references a block scans
+_MAX_QUERIES = 65535 * _THREADS  # queries per launch (grid rows of blocks)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -113,9 +116,12 @@ def _common(queries: torch.Tensor, refs: torch.Tensor):
         raise ValueError("refs must hold at least one point")
     if n_q >= 2**31 or n_r >= 2**31 // 3:
         raise ValueError("too many points for int32 indexing")
-    if -(-n_q // _THREADS) > 65535:
-        raise ValueError(f"at most {65535 * _THREADS} queries per launch")
     return dev, dtype, suffix, n_q, n_r
+
+
+def _one_launch(n_q: int) -> None:
+    if n_q > _MAX_QUERIES:
+        raise ValueError(f"at most {_MAX_QUERIES} queries per launch")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -128,6 +134,7 @@ def match_transform_cuda(queries: torch.Tensor, refs: torch.Tensor,
     """Kernel of ``knn.match_transform``: 1-NN of each query among the refs
     moved by H's [R | t], read by the kernel from device memory."""
     dev, dtype, suffix, n_q, n_r = _common(queries, refs)
+    _one_launch(n_q)
     if H.shape == (4, 4):
         H = H[:3]
     _check("H", H, dev, dtype, (3, 4))
@@ -155,6 +162,7 @@ def knn_search_cuda(queries: torch.Tensor, refs: torch.Tensor, k: int,
     """Kernel of ``knn.knn_search``: the k smallest (d2, index) pairs per
     query in lexicographic order; masked refs count as d2 = +inf."""
     dev, dtype, suffix, n_q, n_r = _common(queries, refs)
+    _one_launch(n_q)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"the k-NN kernel takes 1 <= k <= {MAX_K}, got {k}")
     if k > n_r:
@@ -185,7 +193,9 @@ def nn_search_cuda(queries: torch.Tensor, refs: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel of ``knn.nn_search``: the first-minimum 1-NN of each query;
     masked refs never win, and a query with no valid ref gets d2 = +inf and
-    index 0."""
+    index 0. Queries beyond one launch's grid go in slices of
+    ``_MAX_QUERIES``, one launch each; no query's result depends on
+    another's."""
     dev, dtype, suffix, n_q, n_r = _common(queries, refs)
     if ref_mask is not None:
         _check("ref_mask", ref_mask, dev, torch.bool, (n_r,))
@@ -193,16 +203,18 @@ def nn_search_cuda(queries: torch.Tensor, refs: torch.Tensor,
     out_i = torch.empty((n_q,), dtype=torch.int32, device=dev)
     if n_q == 0:
         return out_d, out_i
-    chunk_len, n_chunks = _plan_chunks(n_q, n_r)
-    part_d = torch.empty((n_chunks, n_q), dtype=dtype, device=dev)
-    part_i = torch.empty((n_chunks, n_q), dtype=torch.int32, device=dev)
     fn = getattr(_library(), f"simpleicp_nn_{suffix}")
     mask_ptr = None if ref_mask is None else ref_mask.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(queries.data_ptr(), n_q, refs.data_ptr(), n_r, mask_ptr,
-                 chunk_len, n_chunks, part_d.data_ptr(), part_i.data_ptr(),
-                 out_d.data_ptr(), out_i.data_ptr(), stream)
-    _raise_on(err, "nn_search")
-    LAUNCHES["nn_search"] += 1
+    for s in range(0, n_q, _MAX_QUERIES):
+        n = min(_MAX_QUERIES, n_q - s)
+        chunk_len, n_chunks = _plan_chunks(n, n_r)
+        part_d = torch.empty((n_chunks, n), dtype=dtype, device=dev)
+        part_i = torch.empty((n_chunks, n), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(queries[s:].data_ptr(), n, refs.data_ptr(), n_r, mask_ptr,
+                     chunk_len, n_chunks, part_d.data_ptr(), part_i.data_ptr(),
+                     out_d[s:].data_ptr(), out_i[s:].data_ptr(), stream)
+        _raise_on(err, "nn_search")
+        LAUNCHES["nn_search"] += 1
     return out_d, out_i

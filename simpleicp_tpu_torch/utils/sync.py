@@ -2,8 +2,10 @@
 
 The ICP loop and the Gauss-Newton inner loop each read one boolean flag
 back to the host per step to decide whether to go on, and the overlap gate
-reads back how many fixed points survive it. Every such read goes through
-``read_flag`` or ``read_nonzero``, so a run can report how many it made.
+reads back how many fixed points survive it (the dilate gate also its
+grid's bounding box and its band). Every such read goes through
+``read_flag``, ``read_nonzero`` or ``read_array``, so a run can report how
+many it made.
 """
 
 from __future__ import annotations
@@ -27,6 +29,14 @@ def read_nonzero(mask: torch.Tensor) -> torch.Tensor:
     global _reads
     _reads += 1
     return torch.nonzero(mask)[:, 0]
+
+
+def read_array(t: torch.Tensor):
+    """A tensor's values as a numpy array, counted (on a CUDA tensor this
+    waits for the device)."""
+    global _reads
+    _reads += 1
+    return t.cpu().numpy()
 
 
 def host_reads() -> int:

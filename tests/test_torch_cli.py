@@ -103,7 +103,6 @@ UNPORTED_FLAGS = {
     "chunked": (["--dispatch", "chunked"], "item 12"),
     "warm_start": (["--warm-start"], "item 10"),
     "gate_grid": (["-o", "0.5", "--gate-method", "grid"], "item 11"),
-    "gate_dilate": (["-o", "0.5", "--gate-method", "dilate"], "item 13"),
     "approx_knn": (["--approx-knn"], "item 15"),
 }
 
@@ -114,6 +113,23 @@ def test_unported_flags_fail_with_their_roadmap_item(xyz_pair, name):
     flags, item = UNPORTED_FLAGS[name]
     with pytest.raises(NotImplementedError, match=item):
         main(["-f", str(f1), "-m", str(f2), "--quiet", "--device", "cpu", *flags])
+
+
+def test_gate_method_dilate_runs(xyz_pair):
+    """--gate-method dilate runs: its export equals the brute gate's bit for
+    bit (the same mask, hence the same run) and the JAX CLI's dilate run
+    within 1e-9."""
+    d, f1, f2 = xyz_pair
+    common = ["-f", str(f1), "-m", str(f2), "-o", "0.25", "-c", "300", "--quiet",
+              "--device", "cpu"]
+    for method in ("dilate", "brute"):
+        assert main(common + ["--dtype", "float64", "--gate-method", method,
+                              "--export", str(d / f"{method}.xyz")]) == 0
+    assert jax_main(common + ["--gate-method", "dilate",
+                              "--export", str(d / "jax_dilate.xyz")]) == 0
+    a = read_xyz(d / "dilate.xyz")
+    np.testing.assert_array_equal(a, read_xyz(d / "brute.xyz"))
+    np.testing.assert_allclose(a, read_xyz(d / "jax_dilate.xyz"), rtol=0, atol=1e-9)
 
 
 def test_malformed_observations_exit_cleanly():

@@ -74,7 +74,6 @@ _X = np.random.default_rng(0).uniform(0, 1, (50, 3))
 UNPORTED = {
     "grid_matcher": (dict(match_method="grid", match_radius=0.5), {}),
     "grid_gate": (dict(max_overlap_distance=1.0, gate_method="grid"), {}),
-    "dilate_gate": (dict(max_overlap_distance=1.0, gate_method="dilate"), {}),
     "chunked": (dict(dispatch="chunked"), {}),
     "warm_start": (dict(warm_start=True), {}),
     "approx_knn": (dict(approx_knn=True), {}),
@@ -94,6 +93,7 @@ _N = np.column_stack([np.zeros(50), np.zeros(50), np.ones(50)])
 
 PORTED = {
     "overlap_gate": (dict(max_overlap_distance=1.0), {}),
+    "dilate_gate": (dict(max_overlap_distance=1.0, gate_method="dilate"), {}),
     "record_trajectory": (dict(record_trajectory=True), {}),
     "normals_fix": ({}, dict(normals_fix=_N)),
     "planarity_fix": ({}, dict(normals_fix=_N, planarity_fix=np.ones(50))),

@@ -284,7 +284,9 @@ def test_gate_reads_back_one_count():
 RAISES = {
     # (config, clouds' sizes, ROADMAP item named)
     "gate_grid": (dict(max_overlap_distance=1.0, gate_method="grid"), (50, 50), "item 11"),
-    "gate_dilate": (dict(max_overlap_distance=1.0, gate_method="dilate"), (50, 50), "item 13"),
+    # above 2^41 pairs with no dilate plan (the box is 10^4 radii wide),
+    # "auto" is the JAX package's grid gate
+    "auto_grid_no_plan": (dict(max_overlap_distance=1e-4), (2**21, 2**20 + 1), "item 11"),
     "match_auto_grid": (dict(max_overlap_distance=1.0, correspondences=2**22),
                         (50, 2**17), "item 11"),
 }
@@ -301,13 +303,17 @@ def test_unported_engines_raise(name):
 
 def test_auto_gate_resolves_to_brute_up_to_2_40_pairs(monkeypatch):
     """gate_method='auto' is the brute gate exactly where the JAX package
-    resolves it so (nf * nm <= 2^40); above it the JAX package plans the
-    dilate gate, which raises here."""
+    resolves it so (nf * nm <= 2^40); above it the dilate gate is planned
+    over the bounding box, as in the JAX package."""
     from simpleicp_tpu_torch.models import icp
+    from simpleicp_tpu_torch.ops.dilate_gate import plan_dilate_gate
 
     cfg = IcpConfig(max_overlap_distance=1.0)
     assert icp._resolve_engines(cfg, 2**20, 2**20, fixed_prep=None).gate_method == "brute"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        icp._resolve_engines(cfg, 2**20, 2**20 + 1, fixed_prep=None)
+    big = icp._resolve_engines(cfg, 2**20, 2**20 + 1, fixed_prep=None)
+    assert big.gate_method == "auto"
+    box = (np.zeros(3), np.full(3, 30.0))
+    plan = icp._resolve_gate(big, 2**20, 2**20 + 1, lambda: box)
+    assert plan is not None and plan == plan_dilate_gate(None, None, 1.0, bbox=box)
     assert icp._resolve_engines(IcpConfig(), 2**30, 2**30,
                                 fixed_prep=None).gate_method == "auto"

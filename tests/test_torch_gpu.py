@@ -109,7 +109,7 @@ def test_nn_kernel(cuda, dtype, nq, nr):
     out = knn.nn_search(q, r)
     assert knn_cuda.LAUNCHES["nn_search"] == before + 1
     _equal(out, knn.nn_search_plain(q, r))
-    _equal(knn.nn_search_auto(q, r, ref_mask=mask),
+    _equal(knn.nn_search(q, r, ref_mask=mask),
            knn.nn_search_plain(q, r, ref_mask=mask))
 
 
@@ -130,6 +130,25 @@ def test_nn_kernel_ties_and_no_valid_ref(cuda, dtype):
     d, i = knn.nn_search(Q, R, ref_mask=none)
     _equal((d, i), knn.nn_search_plain(Q, R, ref_mask=none))
     assert bool(torch.isinf(d).all()) and not bool(i.any())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nn_kernel_query_slices(cuda, dtype, monkeypatch):
+    """Queries beyond one launch's grid go in slices, one launch each, with
+    the unsliced result (the grid's limit lowered to 1 024 queries)."""
+    from simpleicp_tpu_torch.ops import knn, knn_cuda
+
+    rng = np.random.default_rng(11)
+    q = torch.as_tensor(rng.uniform(-5, 5, (4099, 3)), dtype=dtype, device=cuda)
+    r = torch.as_tensor(rng.uniform(-5, 5, (3001, 3)), dtype=dtype, device=cuda)
+    mask = torch.as_tensor(rng.random(3001) < 0.5, device=cuda)
+    whole = knn.nn_search(q, r, ref_mask=mask)
+    monkeypatch.setattr(knn_cuda, "_MAX_QUERIES", 1024)
+    before = knn_cuda.LAUNCHES["nn_search"]
+    out = knn.nn_search(q, r, ref_mask=mask)
+    assert knn_cuda.LAUNCHES["nn_search"] == before + 5
+    _equal(out, whole)
+    _equal(out, knn.nn_search_plain(q, r, ref_mask=mask))
 
 
 def test_gated_icp_register_on_the_card(cuda):
@@ -224,3 +243,120 @@ def test_wrappers_check_their_inputs(cuda):
         knn_cuda.nn_search_cuda(q, q, torch.ones(5, dtype=torch.bool, device=cuda))
     with pytest.raises(TypeError):
         knn_cuda.nn_search_cuda(q, q, torch.ones(4, device=cuda))
+
+
+# ------------------------------------------------------------ dilate kernel
+
+
+def _dilate_cases():
+    """(name, occ (wz, nx, ny) uint32, stencils): the CPU tests' cases."""
+    from simpleicp_tpu_torch.ops.dilate_gate import _pack_occupancy_device, plan_dilate_gate
+
+    rng = np.random.default_rng(21)
+
+    def occ(wz, nx, ny, density=0.02):
+        words = rng.random((wz, nx, ny)) < density
+        return np.where(words, rng.integers(0, 2**32, (wz, nx, ny), dtype=np.uint32),
+                        np.uint32(0))
+
+    a = tuple((dx, dy, 4 - max(abs(dx), abs(dy))) for dx in range(-2, 3) for dy in range(-2, 3))
+    b = ((0, 0, 3), (1, -1, 0), (-2, 0, 1))
+    cases = [(f"synthetic {s}", occ(*s), [a, b]) for s in [(2, 40, 48), (3, 17, 33), (1, 64, 130)]]
+    cases.append(("single stencil", occ(3, 70, 45), [b]))
+    cases.append(("empty and one", occ(2, 20, 20), [(), a]))
+    carry = np.zeros((3, 9, 10), np.uint32)
+    carry[0, 0, 0] = carry[2, 8, 9] = 1 | (1 << 31)
+    carry[1, 4, 5], carry[2, 4, 5], carry[0, 8, 0] = 1 << 31, 1, 1 << 31
+    for z in (1, 17, 31):
+        cases.append((f"carries z={z}", carry, [((0, 0, z), (1, 0, 0), (0, -1, 0)),
+                                                ((0, 0, z), (-1, 1, z // 2))]))
+    cases.append(("every bit set", np.full((3, 37, 41), 0xFFFFFFFF, np.uint32), [a, b]))
+    pts = rng.random((2000, 3)) * np.array([8.0, 6.0, 4.0])
+    for div in (16, 8, 4, 2):
+        plan = plan_dilate_gate(None, pts, 1.0, cell_div=div)
+        words = _pack_occupancy_device(torch.from_numpy(pts), plan=plan).numpy().view(np.uint32)
+        cases.append((f"plan cell_div {div}", words.reshape(plan.wz, *plan.dims[:2]),
+                      [plan.in_offsets, plan.poss_offsets]))
+    # any stencil, no lax precondition: z-radii that do not peak at (0, 0)
+    odd = tuple((int(dx), int(dy), int(z)) for dx, dy, z in
+                zip(rng.integers(-6, 7, 40), rng.integers(-6, 7, 40), rng.integers(0, 32, 40)))
+    cases.append(("random stencil", occ(4, 50, 61, 0.05), [odd, odd[:7]]))
+    return cases
+
+
+def test_dilate_kernel(cuda):
+    """Bit-equal to the plain version on every case; one launch per call
+    with a non-empty stencil."""
+    from simpleicp_tpu_torch.ops import dilate_cuda
+    from simpleicp_tpu_torch.ops.dilate_gate import dilate_packed_multi, dilate_packed_multi_plain
+
+    for name, occ, stencils in _dilate_cases():
+        t = torch.from_numpy(np.ascontiguousarray(occ).view(np.int32)).to(cuda)
+        before = dilate_cuda.LAUNCHES["dilate"]
+        got = dilate_packed_multi(t, stencils)
+        assert dilate_cuda.LAUNCHES["dilate"] == before + 1, name
+        want = dilate_packed_multi_plain(t, stencils)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+    t = torch.zeros((2, 5, 5), dtype=torch.int32, device=cuda)
+    before = dilate_cuda.LAUNCHES["dilate"]
+    assert all(not g.any() for g in dilate_packed_multi(t, [(), ()]))
+    assert dilate_cuda.LAUNCHES["dilate"] == before
+
+
+def test_dilate_wrapper_checks_its_inputs(cuda):
+    from simpleicp_tpu_torch.ops import dilate_cuda
+
+    occ = torch.zeros((2, 8, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        dilate_cuda.dilate_cuda(occ.float(), [((0, 0, 1),)])
+    with pytest.raises(ValueError):
+        dilate_cuda.dilate_cuda(occ[:, :, ::2], [((0, 0, 1),)])
+    with pytest.raises(ValueError):
+        dilate_cuda.dilate_cuda(occ, [((0, 0, 32),)])
+    with pytest.raises(ValueError):
+        dilate_cuda.dilate_cuda(occ, [((0, 0, 1),)] * 3)
+    with pytest.raises(ValueError):
+        dilate_cuda.dilate_cuda(occ, [((60, 0, 1),)])
+
+
+def test_dilate_gated_icp_register_on_the_card(cuda):
+    """gate_method="dilate" on the card: one dilate launch, one 1-NN launch
+    (the band), the brute-gated run's selection, and float64 on the card
+    equal to float64 on the CPU (iterations, selection, last matches, H
+    within 1e-9)."""
+    from simpleicp_tpu_torch import IcpConfig
+    from simpleicp_tpu_torch.models.icp import _icp_register
+    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
+
+    rng = np.random.default_rng(13)
+
+    def surface(n, lo, hi):
+        xy = np.column_stack([rng.uniform(lo, hi, n), rng.uniform(-2, 2, n)])
+        return np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+
+    X_fix, X_mov = surface(20000, -2, 2), surface(20000, -1, 3) + [0.02, -0.01, 0.01]
+
+    def run(device, method):
+        cfg = IcpConfig(correspondences=500, max_iterations=30, max_overlap_distance=0.1,
+                        gate_method=method)
+        return _icp_register(
+            X_fix, X_mov, cfg, rbp_observed_values=None,
+            rbp_observation_weights=None, normals_fix=None, planarity_fix=None,
+            planarity_mov=None, fixed_prep=None, device=device,
+            dtype=torch.float64)
+
+    knn_cuda.reset_launch_counts()
+    dilate_cuda.reset_launch_counts()
+    g, gc = run(cuda, "dilate")
+    assert dilate_cuda.LAUNCHES == {"dilate": 1}
+    assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations),
+                                 "knn_search": 1, "nn_search": 1}
+    b, _ = run(cuda, "brute")
+    assert torch.equal(g.sel_idx, b.sel_idx) and torch.equal(g.H, b.H)
+    c, cc = run("cpu", "dilate")
+    assert int(g.n_iterations) == int(c.n_iterations)
+    assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
+    assert torch.equal(gc.m_idx.cpu(), cc.m_idx)
+    assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9

@@ -20,6 +20,7 @@ ROOT = Path(simpleicp_tpu_torch.__file__).resolve().parent.parent
 def test_import_pulls_in_no_jax():
     code = (
         "import sys; import simpleicp_tpu_torch, simpleicp_tpu_torch.ops.knn, "
+        "simpleicp_tpu_torch.ops.dilate_gate, simpleicp_tpu_torch.ops.dilate_cuda, "
         "simpleicp_tpu_torch.models.icp, simpleicp_tpu_torch.utils.xyz_io, "
         "simpleicp_tpu_torch.cli, simpleicp_tpu_torch.metrics; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -36,7 +37,8 @@ def test_import_pulls_in_no_jax():
 def test_import_builds_nothing():
     build_dir = ROOT / "simpleicp_tpu_torch" / "_build"
     before = sorted(build_dir.iterdir()) if build_dir.exists() else []
-    code = "import simpleicp_tpu_torch.ops.knn_cuda, simpleicp_tpu_torch._build"
+    code = ("import simpleicp_tpu_torch.ops.knn_cuda, simpleicp_tpu_torch._build, "
+            "simpleicp_tpu_torch.ops.dilate_cuda, simpleicp_tpu_torch.ops.dilate_gate")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
     after = sorted(build_dir.iterdir()) if build_dir.exists() else []
     assert after == before
@@ -50,7 +52,8 @@ def _port_sources():
 
 def test_sources_name_no_jax():
     files = _port_sources()
-    assert any(f.suffix == ".cu" for f in files)
+    names = {f.name for f in files}
+    assert {"knn.cu", "dilate.cu", "dilate_gate.py", "dilate_cuda.py"} <= names
     jax_import = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     jax_pkg = re.compile(r"simpleicp_tpu(?!_torch)\b")
     for f in files:
@@ -80,7 +83,7 @@ def test_no_cuda_means_an_error_not_the_cpu(monkeypatch):
 def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
     """On CPU tensors the wrappers are not called at all: the plain
     versions run because the tensors lie on the CPU."""
-    from simpleicp_tpu_torch.ops import knn_cuda
+    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
 
     def boom(*a, **k):
         raise AssertionError("kernel wrapper called for a CPU tensor")
@@ -88,6 +91,7 @@ def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
     monkeypatch.setattr(knn_cuda, "match_transform_cuda", boom)
     monkeypatch.setattr(knn_cuda, "knn_search_cuda", boom)
     monkeypatch.setattr(knn_cuda, "nn_search_cuda", boom)
+    monkeypatch.setattr(dilate_cuda, "dilate_cuda", boom)
     X = np.random.default_rng(1).uniform(-1, 1, (400, 3)) * [1, 1, 0.1]
     res = icp_register(X, X + 0.01, IcpConfig(correspondences=30), device="cpu")
     assert int(res.error_code) == 0
@@ -95,11 +99,18 @@ def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
                                               max_overlap_distance=0.5),
                        device="cpu")
     assert int(res.error_code) == 0
+    res = icp_register(X, X + 0.01, IcpConfig(correspondences=30,
+                                              max_overlap_distance=0.5,
+                                              gate_method="dilate"),
+                       device="cpu")
+    assert int(res.error_code) == 0
 
 
 def test_wrappers_refuse_cpu_tensors():
-    from simpleicp_tpu_torch.ops import knn_cuda
+    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
 
+    with pytest.raises(ValueError, match="CUDA"):
+        dilate_cuda.dilate_cuda(torch.zeros((1, 4, 4), dtype=torch.int32), [((0, 0, 1),)])
     q = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="CUDA"):
         knn_cuda.match_transform_cuda(q, q, torch.eye(4))

@@ -14,7 +14,7 @@ Tolerances:
   distance sum is contracted like XLA's);
 * where every coordinate difference and square is exact (the integer and
   half-integer tie lattice), d2 is bit-equal too.
-The 1-NN of the overlap gate (nn_search, nn_search_auto, min_dist_sq) is
+The 1-NN of the overlap gate (nn_search, min_dist_sq) is
 held to the same: indices bit-equal everywhere, including masked rows,
 queries with no valid ref (+inf, index 0; the Pallas kernel's masked lanes
 carry 1e30 there and are compared as such), odd sizes and exact ties.
@@ -206,21 +206,24 @@ NN_SHAPES = [(1, 1), (7, 130), (512, 2048), (600, 3000), (1003, 4777)]
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nq,nr", NN_SHAPES)
 def test_nn_search_auto_vs_lax(dtype, nq, nr):
-    """nn_search_auto takes the JAX signature's tile and kernel choices
-    and ignores them; odd sizes, with and without a ref mask."""
+    """The port's nn_search against the JAX gate's dispatcher
+    nn_search_auto under each of its tile and kernel choices, and
+    min_dist_sq in the JAX call form; odd sizes, with and without a ref
+    mask."""
     q, r = _clouds(211 + nq, nq, nr, dtype, -5, 5)
     mask = np.random.default_rng(nr).random(nr) < 0.6
     mask[0] = True
     for m in (None, mask):
         jm = None if m is None else jnp.asarray(m)
         tm = None if m is None else _t(m)
-        dj, ij = jk.nn_search(jnp.asarray(q), jnp.asarray(r), ref_mask=jm)
+        dt, it = tk.nn_search(_t(q), _t(r), ref_mask=tm)
         for kw in ({}, dict(ref_tile=64, query_tile=16, use_pallas=False)):
-            dt, it = tk.nn_search_auto(_t(q), _t(r), ref_mask=tm, **kw)
+            dj, ij = jk.nn_search_auto(jnp.asarray(q), jnp.asarray(r), ref_mask=jm, **kw)
             np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
             np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=RTOL[dtype])
         np.testing.assert_array_equal(
-            tk.min_dist_sq(_t(q), _t(r), ref_mask=tm).numpy(), dt.numpy())
+            tk.min_dist_sq(_t(q), _t(r), ref_tile=64, query_tile=16,
+                           ref_mask=tm).numpy(), dt.numpy())
 
 
 @pytest.mark.parametrize("nq,nr", NN_SHAPES[:3])
@@ -250,7 +253,7 @@ def test_nn_search_no_valid_ref_and_tie_lattice():
     dj, ij = jk.nn_search(jnp.asarray(q), jnp.asarray(lat), ref_mask=jnp.asarray(none))
     dp, ip = nn_search_pallas(jnp.asarray(q, np.float32), jnp.asarray(lat, np.float32),
                               ref_mask=jnp.asarray(none), interpret=True)
-    dt, it = tk.nn_search_auto(_t(q), _t(lat), ref_mask=_t(none))
+    dt, it = tk.nn_search(_t(q), _t(lat), ref_mask=_t(none))
     assert np.isinf(dt.numpy()).all() and not it.numpy().any()
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
@@ -263,7 +266,7 @@ def test_nn_search_no_valid_ref_and_tie_lattice():
         dp, ip = nn_search_pallas(jnp.asarray(q, np.float32),
                                   jnp.asarray(lat, np.float32), ref_mask=jm,
                                   interpret=True)
-        dt, it = tk.nn_search_auto(_t(q), _t(lat), ref_mask=None if m is None else _t(m))
+        dt, it = tk.nn_search(_t(q), _t(lat), ref_mask=None if m is None else _t(m))
         np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
         np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
         np.testing.assert_array_equal(it.numpy(), np.asarray(ip))
