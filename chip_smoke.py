@@ -10,8 +10,12 @@ Phases, each printing one JSON object on a line of its own:
            shared-memory lines;
   kernels  each kernel against its plain PyTorch version on the card, float32
            and float64: main-path and gate shapes, odd shapes, a ref mask,
-           no valid ref, a lattice of exact ties. Tolerance: none, indices
-           equal and d2 bit-equal;
+           no valid ref, a lattice of exact ties; the 1-NN in both modes
+           (d2-only and index), also on ties across tiles, reference chunks
+           and query blocks, a ragged query count, a tile minimum equal to
+           the running best, NaN distances and refs by decreasing distance;
+           the dilation with each (warps, rows) instantiation. Tolerance:
+           none, indices equal and d2 bit-equal;
   main     icp_register at 100 000 x 100 000 (default config): float32 on the
            card recovers the known motion; float64 on the card equals float64
            on the CPU (plain versions) in iterations, selection, last
@@ -26,8 +30,9 @@ Phases, each printing one JSON object on a line of its own:
            (1-NN kernel) launch; float64 on the card equals the CPU at
            20 000 x 20 000; float32 at 1 000 000 x 1 000 000 (gate_method
            "auto" resolves to the brute gate: 1e12 < 2^40 pairs), where the
-           gate kernel is bit-equal to its plain version on all 1M rows, and
-           on refs of exact ties;
+           gate kernel (the 1-NN's d2-only mode, as the gate runs it) is
+           bit-equal to its plain version on all 1M rows, and both modes on
+           refs of exact ties; the launch counts name the mode that ran;
   dilate   the dilate overlap gate: a 1 200 000 x 1 200 000 float32 registration
            with gate_method "auto" (1.44e12 > 2^40 pairs, so it plans the
            dilate gate), whose mask, selection, iterations and H equal the
@@ -39,9 +44,13 @@ Phases, each printing one JSON object on a line of its own:
   cli      python3 -m simpleicp_tpu_torch on a gated 100 000-point xyz pair,
            as a subprocess on the card: its lines and its exported cloud;
   times    kernel times (CUDA events, warm L2) beside their bounds and the
-           plain versions' times; the dilate gate's stages at 1.2M and 10M;
-           the per-launch and host-sort costs of the slab join's cost
-           model; registration times; host reads; memory;
+           plain versions' times; the 1-NN in both modes at 100k x 100k, at
+           the gated 1M pair and at the 1.2M band sweep's shape, its index
+           mode's worst order, beside the unfused floor (9 issues a pair);
+           the dilation with each instantiation; the dilate gate's stages
+           at 1.2M and 10M; the slab join's cost model (pair rate,
+           per-launch and host-sort costs); registration times; host reads;
+           memory;
   profile  one registration of each cell under torch.profiler: device busy
            and idle share, kernel launches, device time by kernel.
 Then the kernels line and, last, {"ok": true, "device": {...}}.
@@ -234,18 +243,33 @@ class Compare:
         self.torch.cuda.synchronize()
         self.record(kernel, case, d_k, i_k, d_p, i_p)
 
+    def nn_modes(self, case, q, r, mask=None, ref_mask="same"):
+        """The 1-NN kernel in its index mode (nn_search) and its d2-only
+        mode (min_dist_sq), each against the plain version under
+        ``ref_mask`` (by default the kernel's mask)."""
+        from simpleicp_tpu_torch.ops import knn
+
+        ref_mask = mask if isinstance(ref_mask, str) else ref_mask
+        self.run("nn_search", f"{case}, index mode",
+                 lambda: knn.nn_search(q, r, ref_mask=mask),
+                 lambda: knn.nn_search_plain(q, r, ref_mask))
+        self.run("nn_search", f"{case}, d2-only mode",
+                 lambda: (knn.min_dist_sq(q, r, ref_mask=mask), None),
+                 lambda: knn.nn_search_plain(q, r, ref_mask))
+
     def since(self, n):
         """The cases recorded after the first n."""
         return self.cases[n:]
 
     def record(self, kernel, case, d_k, i_k, d_p, i_p):
         torch = self.torch
-        same_i = torch.equal(i_k, i_p)
+        same_i = True if i_k is None else torch.equal(i_k, i_p)  # d2-only: no index
         same_d = torch.equal(d_k, d_p)
         fin = torch.isfinite(d_p)
         err = float((d_k[fin] - d_p[fin]).abs().max()) if bool(fin.any()) else 0.0
         self.err[kernel] = max(self.err[kernel], err)
-        self.cases.append({"kernel": kernel, "case": case, "idx_equal": same_i,
+        self.cases.append({"kernel": kernel, "case": case,
+                           "idx_equal": None if i_k is None else same_i,
                            "d2_bit_equal": same_d, "max_abs_err": err})
         check(same_i and same_d,
               f"{kernel} {case}: kernel and plain version differ "
@@ -286,17 +310,57 @@ def random_rigid(torch, rng, dtype, dev):
     return rbp_to_H(torch.tensor(p, dtype=dtype, device=dev))
 
 
-def sliced_nn_search(q, r, mask, limit):
-    """nn_search with the 1-NN wrapper's queries per launch lowered to
-    `limit`, so that it launches once per slice of that many queries."""
-    from simpleicp_tpu_torch.ops import knn, knn_cuda
+def sliced(fn, limit):
+    """fn() with the 1-NN wrappers' queries per launch lowered to `limit`,
+    so that they launch once per slice of that many queries."""
+    from simpleicp_tpu_torch.ops import knn_cuda
 
-    saved = knn_cuda._MAX_QUERIES
-    knn_cuda._MAX_QUERIES = limit
+    saved = knn_cuda._NN_MAX_QUERIES
+    knn_cuda._NN_MAX_QUERIES = limit
     try:
-        return knn.nn_search(q, r, ref_mask=mask)
+        return fn()
     finally:
-        knn_cuda._MAX_QUERIES = saved
+        knn_cuda._NN_MAX_QUERIES = saved
+
+
+def nn_edge_cases(torch, T, rng):
+    """(case, queries, refs, kernel mask, reference mask) of the 1-NN's
+    ties and edges. A NaN distance never wins in the kernel, where the
+    plain argmin takes the first NaN, so for refs with NaN coordinates the
+    reference is the plain version with those refs masked."""
+    import numpy as np
+
+    dev = "cuda"
+    g = np.arange(10.0)
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    # 2 500 queries (three blocks of 1 024 queries, the last ragged) against
+    # 40 copies of the lattice: every answer an exact tie across sub-tiles,
+    # tiles and reference chunks
+    lq = T(lat[rng.choice(len(lat), 2500)] + 0.5 * rng.integers(0, 2, (2500, 3)))
+    lr = T(np.concatenate([lat] * 40))
+    m = torch.as_tensor(rng.random(len(lr)) < 0.5, device=dev)
+    out = [("ties across tiles, chunks and query blocks, 2500x40000", lq, lr, None, None),
+           ("the same ties, masked", lq, lr, m, m)]
+    # one query's nearest ref at the start of every 512-ref tile: each later
+    # tile's minimum equals the running best and must keep the first index
+    q = T(rng.uniform(0, 1, (1500, 3)))
+    r = rng.uniform(5, 6, (8192, 3))
+    r[::512] = np.asarray(q[0].cpu())
+    out.append(("a tile minimum equal to the running best", q, T(r), None, None))
+    none = torch.zeros(8192, dtype=torch.bool, device=dev)
+    out.append(("all refs masked", q, T(r), none, none))
+    rn = rng.uniform(0, 1, (5000, 3))
+    rn[1024:2048] = np.nan
+    rn[3000, 1] = np.nan
+    rn = T(rn)
+    finite = ~torch.isnan(rn).any(1)
+    out.append(("a tile of NaN distances (reference: NaN refs masked)", q, rn, None, finite))
+    out.append(("a tile of NaN distances, masked", q, rn, finite, finite))
+    r = rng.uniform(-1, 1, (20000, 3))
+    out.append(("refs by decreasing distance (every sub-tile improves)",
+                T(rng.uniform(-0.1, 0.1, (3000, 3))),
+                T(r[np.argsort(-(r ** 2).sum(1))]), None, None))
+    return out
 
 
 def phase_kernels(torch, cmp):
@@ -360,36 +424,33 @@ def phase_kernels(torch, cmp):
             lambda: knn.knn_search(lq, lr, 26),
             lambda: knn.knn_search_plain(lq, lr, 26))
 
-        # the 1-NN of the overlap gate: every fixed point a query
-        run("nn_search", f"{tag} gate {N_MAIN}x{N_MAIN}",
-            lambda: knn.nn_search(Xf, Xm), lambda: knn.nn_search_plain(Xf, Xm))
+        # the 1-NN of the overlap gate, both modes: every fixed point a query
+        cmp.nn_modes(f"{tag} gate {N_MAIN}x{N_MAIN}", Xf, Xm)
         for nq, nr in ((1, 1), (7, 130), (512, 2048), (4099, 3001)):
             q = T(rng.uniform(0, 1, (nq, 3)))
             r = T(rng.uniform(0, 1, (nr, 3)))
-            run("nn_search", f"{tag} odd {nq}x{nr}",
-                lambda: knn.nn_search(q, r), lambda: knn.nn_search_plain(q, r))
+            cmp.nn_modes(f"{tag} odd {nq}x{nr}", q, r)
         q = T(rng.uniform(0, 1, (20_000, 3)))
         r = T(rng.uniform(0, 1, (30_000, 3)))
         mask = torch.as_tensor(rng.random(30_000) < 0.3, device=dev)
-        run("nn_search", f"{tag} masked 20000x30000",
-            lambda: knn.nn_search(q, r, ref_mask=mask),
-            lambda: knn.nn_search_plain(q, r, ref_mask=mask))
+        cmp.nn_modes(f"{tag} masked 20000x30000", q, r, mask)
         run("nn_search", f"{tag} masked 20000x30000 in 5 launches of <= 4096 queries",
-            lambda: sliced_nn_search(q, r, mask, 4096),
+            lambda: sliced(lambda: knn.nn_search(q, r, ref_mask=mask), 4096),
+            lambda: knn.nn_search_plain(q, r, ref_mask=mask))
+        run("nn_search", f"{tag} the same, d2-only mode",
+            lambda: (sliced(lambda: knn.min_dist_sq(q, r, ref_mask=mask), 4096), None),
             lambda: knn.nn_search_plain(q, r, ref_mask=mask))
         none = torch.zeros(30_000, dtype=torch.bool, device=dev)
-        run("nn_search", f"{tag} no valid ref",
-            lambda: knn.nn_search(q, r, ref_mask=none),
-            lambda: knn.nn_search_plain(q, r, ref_mask=none))
+        cmp.nn_modes(f"{tag} no valid ref", q, r, none)
         d_none, i_none = knn.nn_search(q, r, ref_mask=none)
-        check(bool(torch.isinf(d_none).all()) and not bool(i_none.any()),
+        check(bool(torch.isinf(d_none).all()) and not bool(i_none.any())
+              and bool(torch.isinf(knn.min_dist_sq(q, r, ref_mask=none)).all()),
               "nn_search without a valid ref: expected +inf and index 0")
         lat_mask = torch.as_tensor(rng.random(len(lattice)) < 0.5, device=dev)
-        run("nn_search", f"{tag} tie lattice 300x{len(lattice)}",
-            lambda: knn.nn_search(lq, lr), lambda: knn.nn_search_plain(lq, lr))
-        run("nn_search", f"{tag} tie lattice, masked",
-            lambda: knn.nn_search(lq, lr, ref_mask=lat_mask),
-            lambda: knn.nn_search_plain(lq, lr, ref_mask=lat_mask))
+        cmp.nn_modes(f"{tag} tie lattice 300x{len(lattice)}", lq, lr)
+        cmp.nn_modes(f"{tag} tie lattice, masked", lq, lr, lat_mask)
+        for case, q, r, m, ref_m in nn_edge_cases(torch, T, rng):
+            cmp.nn_modes(f"{tag} {case}", q, r, m, ref_m)
     kernels_dilate(torch, cmp)
     emit({"phase": "kernels", "tolerance": "indices equal, d2 bit-equal; "
           "dilate: 0 differing words", "cases": cmp.since(n0), "max_abs_err": cmp.err})
@@ -433,13 +494,32 @@ def kernels_dilate(torch, cmp):
     cmp.grids("every bit set", T(np.full((3, 100, 90), 0xFFFFFFFF, np.uint32)), [a, b])
     pts = torch.as_tensor(rng.random((20_000, 3)) * np.array([8.0, 6.0, 4.0]),
                           dtype=torch.float32, device="cuda")
+    plans = {}
     for div in (16, 8, 4, 2):
         plan = plan_dilate_gate(None, pts.cpu().numpy(), 1.0, cell_div=div)
         words = _pack_occupancy_device(pts, plan=plan).reshape(plan.wz, *plan.dims[:2])
+        plans[div] = (plan, words)
         cmp.grids(f"plan cell_div {div}", words, [plan.in_offsets, plan.poss_offsets])
         full = torch.full_like(words, -1)
         cmp.grids(f"plan cell_div {div}, every bit set", full,
                   [plan.in_offsets, plan.poss_offsets])
+    # each (warps, rows) instantiation of the kernel, forced
+    from simpleicp_tpu_torch.ops import dilate_cuda
+
+    plan, words = plans[16]
+    full = torch.full_like(words, -1)
+    saved = dilate_cuda._VARIANTS
+    try:
+        for v in saved:
+            dilate_cuda._VARIANTS = (v,)
+            cmp.grids(f"{v} synthetic (9, 300, 257)", T(occ(9, 300, 257)), [a, b])
+            cmp.grids(f"{v} carries z=31", T(carry), [((0, 0, 31), (1, 0, 0)), ((0, 0, 31),)])
+            cmp.grids(f"{v} unstructured stencil", T(occ(4, 50, 61, 0.05)), [odd, odd[:7]])
+            cmp.grids(f"{v} plan cell_div 16, every bit set", full,
+                      [plan.in_offsets, plan.poss_offsets])
+            cmp.grids(f"{v} plan cell_div 16", words, [plan.in_offsets, plan.poss_offsets])
+    finally:
+        dilate_cuda._VARIANTS = saved
 
 
 def _register(torch, X_fix, X_mov, dtype, device, gate=None, method="auto"):
@@ -475,7 +555,8 @@ def counted_run(torch, X_fix, X_mov, dtype, gate=None, gate_launches=None):
     """One registration on the card with every count set to 0 just before
     and read just after: one k-NN launch, one match launch per iteration,
     and the gate's launches (``gate_launches``; by default one 1-NN launch
-    when gated, none otherwise)."""
+    in the d2-only mode when gated, none otherwise; never the index
+    mode)."""
     from simpleicp_tpu_torch.utils import sync
 
     torch.cuda.synchronize()
@@ -489,7 +570,8 @@ def counted_run(torch, X_fix, X_mov, dtype, gate=None, gate_launches=None):
     reads = sync.host_reads()
     n_it = int(res.n_iterations)
     if gate_launches is None:
-        gate_launches = {"nn_search": 0 if gate is None else 1, "dilate": 0}
+        gate_launches = {"nn_search": 0, "nn_search_d2": 0 if gate is None else 1,
+                         "dilate": 0}
     want = {"match_transform": n_it, "knn_search": 1, **gate_launches}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     return res, carry, launches, reads, seconds
@@ -594,12 +676,13 @@ def check_overlap(res, X_fix, x_overlap, what):
 def check_gate_1m(torch, cmp, X_fix, X_mov):
     """The 1-NN kernel against its plain version at the gate's 1M x 1M
     layout: every fixed point against the movable cloud under the initial
-    transform (identity), all rows; then against a reference cloud whose
-    second half repeats its first, so that every answer is an exact tie
-    across tiles far apart: all 1M winners must lie in the first copy, and
-    a seeded sample of rows (the last block's rows among them) must equal
-    the plain version. Each row's answer depends on no other row, so the
-    plain version on a subset of queries is the reference for those rows."""
+    transform (identity), all rows, in the d2-only mode the gate runs;
+    then, in both modes, against a reference cloud whose second half
+    repeats its first, so that every answer is an exact tie across tiles
+    and chunks far apart: all 1M winners must lie in the first copy, and a
+    seeded sample of rows (the last block's rows among them) must equal the
+    plain version. Each row's answer depends on no other row, so the plain
+    version on a subset of queries is the reference for those rows."""
     import numpy as np
 
     from simpleicp_tpu_torch.ops import knn
@@ -610,22 +693,25 @@ def check_gate_1m(torch, cmp, X_fix, X_mov):
     Xm = torch.as_tensor(X_mov, dtype=torch.float32, device="cuda")
     Xm0 = apply_H(Xm, rbp_to_H(torch.zeros(6, dtype=torch.float32, device="cuda")))
     n_f, n_m = Xf.shape[0], Xm0.shape[0]
-    cmp.run("nn_search", f"float32 gate {n_f}x{n_m}, all rows",
-            lambda: knn.nn_search(Xf, Xm0), lambda: knn.nn_search_plain(Xf, Xm0))
+    cmp.run("nn_search", f"float32 gate {n_f}x{n_m}, all rows, d2-only mode",
+            lambda: (knn.min_dist_sq(Xf, Xm0), None), lambda: knn.nn_search_plain(Xf, Xm0))
 
     half = n_m // 2
     Xt = torch.cat([Xm0[:half], Xm0[:half]]).contiguous()
     d_k, i_k = knn.nn_search(Xf, Xt)
+    d2_k = knn.min_dist_sq(Xf, Xt)
     torch.cuda.synchronize()
     check(int(i_k.max()) < half,
           f"gate ties {n_f}x{2 * half}: a winner lies in the second copy")
-    rows = np.random.default_rng(SEED + 7).choice(n_f - 256, 20_000, replace=False)
-    rows = torch.as_tensor(np.concatenate([rows, np.arange(n_f - 256, n_f)]),
+    rows = np.random.default_rng(SEED + 7).choice(n_f - 1024, 20_000, replace=False)
+    rows = torch.as_tensor(np.concatenate([rows, np.arange(n_f - 1024, n_f)]),
                            device="cuda")
     d_p, i_p = knn.nn_search_plain(Xf[rows].contiguous(), Xt)
     torch.cuda.synchronize()
     cmp.record("nn_search", f"float32 gate ties {n_f}x{2 * half}, "
-               f"{rows.shape[0]} rows", d_k[rows], i_k[rows], d_p, i_p)
+               f"{rows.shape[0]} rows, index mode", d_k[rows], i_k[rows], d_p, i_p)
+    cmp.record("nn_search", f"float32 gate ties {n_f}x{2 * half}, "
+               f"{rows.shape[0]} rows, d2-only mode", d2_k[rows], None, d_p, i_p)
     return cmp.since(n0)
 
 
@@ -755,8 +841,9 @@ def phase_dilate(torch, cmp):
     cmp.grids("the 1.2M pair's own grid", occ, [plan.in_offsets, plan.poss_offsets])
     cmp.grids("the 1.2M pair's own grid, POSS alone", occ, [plan.poss_offsets])
     del occ
-    gl = {"nn_search": alone["gate_launches"].get("nn_search", 0),
-          "dilate": alone["gate_launches"]["dilate"]}
+    gl = {k: alone["gate_launches"].get(k, 0) for k in ("nn_search", "nn_search_d2", "dilate")}
+    check(gl["nn_search"] == 0 and gl["nn_search_d2"] >= 1,
+          f"dilate 1.2M: the band sweep did not run the d2-only mode alone ({gl})")
     torch.cuda.reset_peak_memory_stats()
     res, _, launches, reads, seconds = counted_run(torch, X_fix, X_mov, torch.float32,
                                                    GATE_RADIUS, gate_launches=gl)
@@ -890,6 +977,34 @@ def bound_ms(kernel, n_q, n_r, dtype_bytes, k=1):
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def nn_floor_ms(n_q, n_r, dtype_bytes):
+    """The 1-NN's floor without fused multiply-adds (ms): 9 issues a pair
+    (three subtractions, three multiplications, two additions, the running
+    minimum) over 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz = 3.35e13
+    lane slots a second in float32; in float64 the same 9 operations over
+    the 64 FP64 lanes of each SM (1.67e13 a second)."""
+    rate = 132 * 4 * 32 * 1.98e9 if dtype_bytes == 4 else 132 * 64 * 1.98e9
+    return 1e3 * 9.0 * n_q * n_r / rate
+
+
+def nn_times(torch, Q, R, dtype_bytes, reps, plain_reps=0):
+    """Both 1-NN modes on one shape: ms of the d2-only mode (``ms``, the
+    gates' mode) and of the index mode, beside the bound, the unfused
+    floor and (with plain_reps) the plain version."""
+    from simpleicp_tpu_torch.ops import knn
+
+    b, by = bound_ms("nn_search", Q.shape[0], R.shape[0], dtype_bytes)
+    out = {"shape": [Q.shape[0], R.shape[0]],
+           "ms": cuda_ms(torch, lambda: knn.min_dist_sq(Q, R), reps),
+           "index_ms": cuda_ms(torch, lambda: knn.nn_search(Q, R), reps),
+           "bound_ms": b, "bound_by": by,
+           "unfused_floor_ms": nn_floor_ms(Q.shape[0], R.shape[0], dtype_bytes),
+           "library_ms": None}
+    if plain_reps:
+        out["plain_ms"] = cuda_ms(torch, lambda: knn.nn_search_plain(Q, R), plain_reps)
+    return out
+
+
 # Hopper SM: 64 INT32 lanes; 132 SMs at the H100 SXM's 1.98 GHz boost clock
 # (NVIDIA data sheet and Hopper white paper, 700 W). A lane issues one LOP3
 # per clock: any boolean function of three 32-bit words, so up to two ORs.
@@ -1001,23 +1116,31 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
             "bound_ms": b, "bound_by": by, "library_ms": None,
         }
         # the gate: every fixed point against the movable cloud
-        b, by = bound_ms("nn_search", N_MAIN, N_MAIN, size)
-        row["nn_search"] = {
-            "ms": cuda_ms(torch, lambda: knn.nn_search(Xf, Xm), 10),
-            "plain_ms": cuda_ms(torch, lambda: knn.nn_search_plain(Xf, Xm), 2),
-            "bound_ms": b, "bound_by": by, "library_ms": None,
-        }
+        row["nn_search"] = nn_times(torch, Xf, Xm, size, 10, plain_reps=2)
+        # the index mode's worst order: refs by decreasing distance from the
+        # queries' centroid, so that each query's running best keeps falling
+        Xw = Xm[torch.argsort(-((Xm - Xf.mean(0)) ** 2).sum(1))].contiguous()
+        d_w, i_w = knn.nn_search(Xf, Xw)
+        d_p, i_p = knn.nn_search_plain(Xf, Xw)
+        check(torch.equal(d_w, d_p) and torch.equal(i_w, i_p),
+              f"{tag} 1-NN index mode, refs by decreasing distance: differs from plain")
+        row["nn_search"]["index_decreasing_order_ms"] = cuda_ms(
+            torch, lambda: knn.nn_search(Xf, Xw), 10)
         kernels[tag] = row
     emit({"phase": "times", "what": f"kernels at 1000 x {N_MAIN} (k=10), the gate "
-          f"at {N_MAIN} x {N_MAIN}; warm L2", "kernels": kernels})
+          f"at {N_MAIN} x {N_MAIN} (the 1-NN: ms is the d2-only mode, index_ms the index "
+          "mode); warm L2", "kernels": kernels})
 
+    nn_rate = None
     if gated_big is not None:
         Xf = torch.as_tensor(gated_big[0], dtype=torch.float32, device=dev)
         Xm = torch.as_tensor(gated_big[1], dtype=torch.float32, device=dev)
-        b, by = bound_ms("nn_search", N_GATE_BIG, N_GATE_BIG, 4)
+        big = nn_times(torch, Xf, Xm, 4, 3)
+        nn_rate = N_GATE_BIG * N_GATE_BIG / (big["ms"] / 1e3)
         emit({"phase": "times", "what": f"gate kernel at {N_GATE_BIG} x {N_GATE_BIG}, "
-              "float32", "nn_search": {"ms": cuda_ms(torch, lambda: knn.nn_search(Xf, Xm), 3),
-                                       "bound_ms": b, "bound_by": by}})
+              "float32 (the gated 1M pair's own clouds)", "nn_search": big,
+              "d2_pairs_per_s": nn_rate})
+        del Xf, Xm
 
     dilate_row = None
     if dil is not None:
@@ -1027,26 +1150,49 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
             dilate_packed_multi_plain,
         )
 
+        from simpleicp_tpu_torch.ops import dilate_cuda
+        from simpleicp_tpu_torch.ops.dilate_gate import classify_queries
+
         Xf, Xm0 = gate_inputs(torch, *dil["clouds"])
         plan = plan_of(Xm0)
+        # the 1-NN at the band sweep's own call: the band's fixed points
+        # against the whole transformed movable cloud
+        band = Xf[classify_queries(Xf, Xm0, plan=plan)[1]].contiguous()
+        band_row = nn_times(torch, band, Xm0, 4, 5)
         occ = _pack_occupancy_device(Xm0, plan=plan).reshape(plan.wz, *plan.dims[:2])
-        del Xf, Xm0
+        del Xf, Xm0, band
         rows = {}
         for label, st in (("IN+POSS", [plan.in_offsets, plan.poss_offsets]),
                           ("POSS", [plan.poss_offsets])):
             b, by = dilate_bound_ms(plan.n_words, [len(o) for o in st])
+            w, r = dilate_cuda._plan(tuple(tuple(o) for o in st))[:2]
             rows[label] = {
                 "ms": cuda_ms(torch, lambda: dilate_packed_multi(occ, st), 20),
                 "plain_ms": cuda_ms(torch, lambda: dilate_packed_multi_plain(occ, st), 1),
-                "bound_ms": b, "bound_by": by, "library_ms": None}
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "warps_rows": [w, r]}
+        saved = dilate_cuda._VARIANTS
+        try:
+            for v in saved:
+                dilate_cuda._VARIANTS = (v,)
+                for label, st in (("IN+POSS", [plan.in_offsets, plan.poss_offsets]),
+                                  ("POSS", [plan.poss_offsets])):
+                    rows[f"{label} {v}"] = {
+                        "ms": cuda_ms(torch, lambda: dilate_packed_multi(occ, st), 20)}
+        finally:
+            dilate_cuda._VARIANTS = saved
         del occ
         dilate_row = rows["IN+POSS"]
+        slab = slab_rates(torch)
+        slab["pairs_per_s"] = nn_rate
         emit({"phase": "times", "what": f"dilate kernel at the {N_DILATE} x {N_DILATE} "
-              "pair's plan (warm L2); the gate's stages at 1.2M and 10M; the slab "
-              "join cost model's host rates", "plan": plan_summary(plan), "dilate": rows,
+              "pair's plan (warm L2; each (warps, rows) instantiation forced); the 1-NN at "
+              "the band sweep's shape; the gate's stages at 1.2M and 10M; the slab join "
+              "cost model's rates (the pair rate: the d2-only 1-NN at the gated 1M pair)",
+              "plan": plan_summary(plan), "dilate": rows, "nn_band_sweep": band_row,
               "gate_stages": {"1.2M": gate_stages(torch, *dil["clouds"]),
                               "10M": gate_stages(torch, *dil["clouds10M"])},
-              "slab_cost_model": slab_rates(torch)})
+              "slab_cost_model": slab})
 
     reg = {}
     clouds = {"100k": (X_fix, X_mov, None, 5)}
@@ -1089,8 +1235,8 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
 # substring of another).
 KERNEL_NAMES = {"match_transform_scan": "match_transform", "nn_reduce": "match_transform",
                 "knn_scan": "knn_search", "knn_merge": "knn_search",
-                "nn_search_scan": "nn_search", "nn_search_reduce": "nn_search",
-                "dilate_kernel": "dilate"}
+                "nn1_scan": "nn_search", "nn1_min_reduce": "nn_search",
+                "nn1_arg_finish": "nn_search", "dilate_kernel": "dilate"}
 
 
 def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
@@ -1197,13 +1343,16 @@ def main(argv=None) -> int:
     if None not in (errs, main_info, gated_launches, times, dil):
         # Launches of each kernel in the run of its path: the ungated main
         # path for the match and k-NN kernels, the brute-gated path for the
-        # 1-NN gate, the dilate-gated 1.2M registration for the dilation.
-        launches = {**main_info[0], "nn_search": gated_launches["nn_search"],
+        # 1-NN gate (both modes counted; the gate runs the d2-only one, whose
+        # time is "ms"), the dilate-gated 1.2M registration for the dilation.
+        modes = {"d2_only": gated_launches["nn_search_d2"], "index": gated_launches["nn_search"]}
+        launches = {**main_info[0], "nn_search": sum(modes.values()),
                     "dilate": dil["launches"]["dilate"]}
         emit({"kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name], "launches": launches[name],
-             "max_abs_err": errs[name], **times[name]}
+             "max_abs_err": errs[name], **times[name],
+             **({"launches_by_mode": modes} if name == "nn_search" else {})}
             for name in KERNELS
         ]})
     check("jax" not in sys.modules, "JAX was imported during the run")

@@ -1,6 +1,7 @@
 """Registration-quality metrics, independent of any implementation's own
-residual statistics. The nearest-neighbour distances run the 1-NN kernel on
-the card (``device``, ``dtype``: the card and float32 by default)."""
+residual statistics. The nearest-neighbour distances run the 1-NN kernel's
+d2-only mode on the card (``device``, ``dtype``: the card and float32 by
+default)."""
 
 from __future__ import annotations
 
@@ -13,10 +14,10 @@ from .utils.device import DeviceLike, resolve
 
 
 def _nn_d2(X_from, X_to, device, dtype) -> np.ndarray:
-    from .ops.knn import nn_search
+    from .ops.knn import min_dist_sq
 
     dev, dtype = resolve(device, dtype)
-    d2, _ = nn_search(
+    d2 = min_dist_sq(
         torch.as_tensor(np.ascontiguousarray(X_from), dtype=dtype, device=dev),
         torch.as_tensor(np.ascontiguousarray(X_to), dtype=dtype, device=dev),
     )

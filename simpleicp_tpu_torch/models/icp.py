@@ -37,7 +37,7 @@ import torch
 
 from ..config import IcpConfig
 from ..ops.dilate_gate import bbox_of, overlap_mask_dilate, plan_dilate_gate
-from ..ops.knn import knn_search, match_transform, nn_search
+from ..ops.knn import knn_search, match_transform, min_dist_sq
 from ..ops.normals import estimate_normals_from_neighborhoods
 from ..ops.stats import masked_mad, masked_mean, masked_median, masked_std, pct_change
 from ..ops.transform import (
@@ -211,7 +211,7 @@ def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig):
     if plan is not None:
         sel_mask = overlap_mask_dilate(Xf, Xm0, cfg.max_overlap_distance, plan)
     else:
-        d2, _ = nn_search(Xf, Xm0)
+        d2 = min_dist_sq(Xf, Xm0)
         # The radius is cast to the coordinate dtype before it is squared.
         r = torch.tensor(cfg.max_overlap_distance, dtype=Xf.dtype, device=dev)
         sel_mask = d2 <= r ** 2

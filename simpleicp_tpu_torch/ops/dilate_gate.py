@@ -14,12 +14,12 @@ r. Instead of the 1-NN of every fixed point:
      r + margin of one;
   3. classify each fixed point by one word gather and bit test per grid:
      IN is kept, not POSS is dropped, the thin band between them is
-     resolved with exact distances (``nn_search``, the 1-NN kernel on the
-     card), after two exact restrictions where the band is large: the
-     band-ref compaction (a POSS dilation of the band's own occupancy keeps
-     only the movable points it can reach) and the blocked 2-D slab join
-     (per block of band points, only the movable points within the radius
-     along the two longest grid axes).
+     resolved with exact distances (``min_dist_sq``, the 1-NN kernel's
+     d2-only mode on the card), after two exact restrictions where the
+     band is large: the band-ref compaction (a POSS dilation of the band's
+     own occupancy keeps only the movable points it can reach) and the
+     blocked 2-D slab join (per block of band points, only the movable
+     points within the radius along the two longest grid axes).
 
 The margin sends every rounding doubt into the band, so the mask is the
 exact ``min_dist <= r`` predicate: bit for bit the brute gate's on the same
@@ -349,13 +349,14 @@ _SLAB_SWEEP_MIN = 1 << 40
 _SLAB_CHUNK_OPTS = (1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18,
                     1 << 19)
 # The cost model's rates, measured by chip_smoke.py (`times`) on an NVIDIA
-# H100 80GB HBM3 at a 700 W power limit: the 1-NN kernel's float32 pair
-# rate (1e12 pairs in 441 ms), the host cost of one block's exact sweep
-# (gathers, the 1-NN launch, compare and scatter of a 512-point block:
-# 0.129 ms), and numpy's stable argsort per element on that machine's host
-# (1M float32 keys: 0.224 s).
-_SLAB_PAIRS_PER_SEC = 2.27e12
-_SLAB_CALL_SEC = 1.3e-4
+# H100 80GB HBM3 at a 700 W power limit: the float32 pair rate of the 1-NN
+# kernel's d2-only mode, which the sweeps run (1e12 pairs in 302 ms), the
+# host cost of one block's exact sweep (gathers, the d2-only launch,
+# compare and scatter of a 512-point block: 0.058-0.072 ms on two
+# machines), and numpy's stable argsort per element on the host (1M
+# float32 keys: 0.13-0.22 s on three machines).
+_SLAB_PAIRS_PER_SEC = 3.3e12
+_SLAB_CALL_SEC = 6.5e-5
 _SLAB_HOST_SORT_SEC = 2.2e-7
 # Minimum y-sub-chunk size of the slab join (the second restriction axis).
 # Tests lower it to exercise multi-block slabs.

@@ -174,9 +174,16 @@ def min_dist_sq(queries: torch.Tensor, refs: torch.Tensor, *,
                 layout: str = "qt",
                 ref_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Squared distance from each query to its nearest reference point,
-    under the JAX package's signature. ``ref_tile``, ``query_tile`` and
-    ``layout`` choose TPU tiles there and change no result, so they are
-    accepted and ignored."""
+    under the JAX package's signature: ``nn_search``'s d2 (+inf where no
+    reference is valid) without its index. On a CUDA tensor this is the
+    1-NN kernel's d2-only mode. ``ref_tile``, ``query_tile`` and ``layout``
+    choose TPU tiles there and change no result, so they are accepted and
+    ignored."""
     del ref_tile, query_tile, layout
-    d2, _ = nn_search(queries, refs, ref_mask=ref_mask)
-    return d2
+    _check_points("queries", queries)
+    _check_points("refs", refs)
+    if refs.shape[0] == 0:
+        return _no_refs(queries)[0]
+    if _on_device(queries):
+        return knn_cuda.nn_d2_cuda(queries, refs, ref_mask)
+    return nn_search_plain(queries, refs, ref_mask)[0]

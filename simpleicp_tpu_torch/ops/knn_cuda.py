@@ -1,13 +1,15 @@
-"""ctypes wrappers of the three nearest-neighbour kernels in ``csrc/knn.cu``.
+"""ctypes wrappers of the nearest-neighbour kernels in ``csrc/knn.cu``.
 
 Each wrapper checks its tensors, allocates the outputs and the partials
 scratch with ``torch.empty``, launches the kernel's two passes on PyTorch's
 current stream and raises if ``cudaGetLastError`` reports a failure. It
 never synchronizes and never falls back to a plain version. Each launch
-adds one to its kernel's entry in ``LAUNCHES``; nothing else touches the
-counts but ``reset_launch_counts``. A launch's grid holds at most
-``_MAX_QUERIES`` queries: the 1-NN wrapper launches once per slice of that
-many, the other two raise above it.
+adds one to its entry in ``LAUNCHES``; nothing else touches the counts but
+``reset_launch_counts``. The 1-NN kernel has two entries, one per mode:
+``nn_search`` (index mode) and ``nn_search_d2`` (d2-only mode). A launch's
+grid holds at most ``_MAX_QUERIES`` queries for the match and k-NN
+kernels, which raise above it, and ``_NN_MAX_QUERIES`` for the 1-NN, whose
+wrappers launch once per slice of that many.
 
 The library is built by ``_build.build`` at the first call, not at
 import, so importing this module needs neither nvcc nor a card.
@@ -16,6 +18,7 @@ import, so importing this module needs neither nvcc nor a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional, Tuple
 
@@ -23,8 +26,8 @@ import torch
 
 from .. import _build
 
-# Launches per kernel since the last reset_launch_counts().
-LAUNCHES = {"match_transform": 0, "knn_search": 0, "nn_search": 0}
+# Launches per kernel (and per 1-NN mode) since the last reset_launch_counts().
+LAUNCHES = {"match_transform": 0, "knn_search": 0, "nn_search": 0, "nn_search_d2": 0}
 
 MAX_K = 64          # csrc/knn.cu kMaxK
 _THREADS = 256      # csrc/knn.cu kThreads: queries per block
@@ -34,6 +37,16 @@ _SM_COUNT_H100 = 132
 _TARGET_BLOCKS = 2 * 8 * _SM_COUNT_H100
 _MIN_CHUNK = 32     # fewest references a block scans
 _MAX_QUERIES = 65535 * _THREADS  # queries per launch (grid rows of blocks)
+
+# The 1-NN (csrc/knn.cu kNnQ, kNnSub): a block holds _NN_BLOCK queries.
+_NN_BLOCK = 4 * _THREADS
+_NN_SUB = 32
+_NN_MAX_QUERIES = 65535 * _NN_BLOCK  # queries per 1-NN launch
+_NN_MIN_CHUNK = 256    # fewest references a 1-NN block scans
+# A 1-NN block's fixed cost (queries, the first tile's load, the writes),
+# counted as references scanned, and the most chunks a plan considers.
+_NN_BLOCK_COST = 512
+_NN_MAX_CHUNKS = 1024
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -59,15 +72,23 @@ def _library() -> ctypes.CDLL:
                 fn.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
                 fn.restype = _I
                 fn = getattr(lib, f"simpleicp_nn_{suffix}")
-                # q, nq, refs, n, mask, chunk_len, n_chunks, part_d, part_i,
+                # q, nq, refs, n, mask, chunk_len, n_chunks, part_d, part_b,
                 # out_d, out_i, stream
                 fn.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
+                fn.restype = _I
+                fn = getattr(lib, f"simpleicp_nn_d2_{suffix}")
+                # q, nq, refs, n, mask, chunk_len, n_chunks, part_d, out_d,
+                # stream
+                fn.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P]
                 fn.restype = _I
                 fn = getattr(lib, f"simpleicp_knn_{suffix}")
                 # q, nq, refs, n, mask, k, chunk_len, n_chunks, part_d,
                 # part_i, out_d, out_i, stream
                 fn.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P]
                 fn.restype = _I
+            # f64, index, out
+            lib.simpleicp_nn_resident.argtypes = [_I, _I, ctypes.POINTER(_I)]
+            lib.simpleicp_nn_resident.restype = _I
             _lib = lib
         return _lib
 
@@ -102,6 +123,46 @@ def _plan_chunks(n_q: int, n_r: int) -> Tuple[int, int]:
     want = max(1, min(-(-n_r // _MIN_CHUNK), -(-_TARGET_BLOCKS // q_blocks)))
     chunk_len = -(-n_r // want)
     return chunk_len, -(-n_r // chunk_len)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_nn_chunks(n_q: int, n_r: int, resident: int) -> Tuple[int, int]:
+    """(chunk_len, n_chunks) of the 1-NN's reference axis. Blocks of equal
+    work run in waves of ``resident`` (the card's SMs times the scan's
+    blocks per SM), so a grid that leaves the last wave part empty wastes
+    that part: pick the split whose waves times (chunk + a block's fixed
+    cost) is least, with no chunk under _NN_MIN_CHUNK references; ties go
+    to fewer chunks."""
+    q_blocks = -(-n_q // _NN_BLOCK)
+    best = None
+    for want in range(1, max(1, min(n_r // _NN_MIN_CHUNK, _NN_MAX_CHUNKS)) + 1):
+        chunk_len = -(-n_r // want)
+        n_chunks = -(-n_r // chunk_len)
+        waves = -(-q_blocks * n_chunks // resident)
+        scanned = -(-chunk_len // _NN_SUB) * _NN_SUB
+        cost = waves * (scanned + _NN_BLOCK_COST)
+        if best is None or cost < best[0]:
+            best = (cost, chunk_len, n_chunks)
+    return best[1], best[2]
+
+
+_resident_cache = {}
+
+
+def _nn_resident(dev: torch.device, dtype: torch.dtype, index: bool) -> int:
+    """Resident 1-NN scan blocks on ``dev`` (the occupancy API's blocks per
+    SM times the SM count), once per device, dtype and mode."""
+    key = (dev.index, dtype, index)
+    if key not in _resident_cache:
+        out = _I(0)
+        with torch.cuda.device(dev):
+            err = _library().simpleicp_nn_resident(int(dtype == torch.float64),
+                                                   int(index), ctypes.byref(out))
+        _raise_on(err, "nn_search occupancy")
+        if out.value < 1:
+            raise RuntimeError("the 1-NN kernel fits no block on this device")
+        _resident_cache[key] = out.value
+    return _resident_cache[key]
 
 
 def _common(queries: torch.Tensor, refs: torch.Tensor):
@@ -188,33 +249,52 @@ def knn_search_cuda(queries: torch.Tensor, refs: torch.Tensor, k: int,
     return out_d, out_i
 
 
-def nn_search_cuda(queries: torch.Tensor, refs: torch.Tensor,
-                   ref_mask: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel of ``knn.nn_search``: the first-minimum 1-NN of each query;
-    masked refs never win, and a query with no valid ref gets d2 = +inf and
-    index 0. Queries beyond one launch's grid go in slices of
-    ``_MAX_QUERIES``, one launch each; no query's result depends on
-    another's."""
+def _nn(queries: torch.Tensor, refs: torch.Tensor,
+        ref_mask: Optional[torch.Tensor], index: bool):
+    """Both 1-NN modes: one launch per slice of _NN_MAX_QUERIES queries (no
+    query's result depends on another's). Returns (d2, idx or None)."""
     dev, dtype, suffix, n_q, n_r = _common(queries, refs)
     if ref_mask is not None:
         _check("ref_mask", ref_mask, dev, torch.bool, (n_r,))
     out_d = torch.empty((n_q,), dtype=dtype, device=dev)
-    out_i = torch.empty((n_q,), dtype=torch.int32, device=dev)
+    out_i = torch.empty((n_q,), dtype=torch.int32, device=dev) if index else None
     if n_q == 0:
         return out_d, out_i
-    fn = getattr(_library(), f"simpleicp_nn_{suffix}")
+    name = "nn_search" if index else "nn_search_d2"
+    fn = getattr(_library(), f"simpleicp_nn_{suffix}" if index else f"simpleicp_nn_d2_{suffix}")
+    resident = _nn_resident(dev, dtype, index)
     mask_ptr = None if ref_mask is None else ref_mask.data_ptr()
-    for s in range(0, n_q, _MAX_QUERIES):
-        n = min(_MAX_QUERIES, n_q - s)
-        chunk_len, n_chunks = _plan_chunks(n, n_r)
-        part_d = torch.empty((n_chunks, n), dtype=dtype, device=dev)
-        part_i = torch.empty((n_chunks, n), dtype=torch.int32, device=dev)
+    for s in range(0, n_q, _NN_MAX_QUERIES):
+        n = min(_NN_MAX_QUERIES, n_q - s)
+        chunk_len, n_chunks = _plan_nn_chunks(n, n_r, resident)
+        part_d = (torch.empty((n_chunks, n), dtype=dtype, device=dev)
+                  if index or n_chunks > 1 else None)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(queries[s:].data_ptr(), n, refs.data_ptr(), n_r, mask_ptr,
-                     chunk_len, n_chunks, part_d.data_ptr(), part_i.data_ptr(),
-                     out_d[s:].data_ptr(), out_i[s:].data_ptr(), stream)
-        _raise_on(err, "nn_search")
-        LAUNCHES["nn_search"] += 1
+            head = (queries[s:].data_ptr(), n, refs.data_ptr(), n_r, mask_ptr,
+                    chunk_len, n_chunks, None if part_d is None else part_d.data_ptr())
+            if index:
+                part_b = torch.empty((n_chunks, n), dtype=torch.int32, device=dev)
+                err = fn(*head, part_b.data_ptr(), out_d[s:].data_ptr(),
+                         out_i[s:].data_ptr(), stream)
+            else:
+                err = fn(*head, out_d[s:].data_ptr(), stream)
+        _raise_on(err, name)
+        LAUNCHES[name] += 1
     return out_d, out_i
+
+
+def nn_search_cuda(queries: torch.Tensor, refs: torch.Tensor,
+                   ref_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel of ``knn.nn_search`` (index mode): the first-minimum 1-NN of
+    each query; masked refs never win, and a query with no valid ref gets
+    d2 = +inf and index 0."""
+    return _nn(queries, refs, ref_mask, index=True)
+
+
+def nn_d2_cuda(queries: torch.Tensor, refs: torch.Tensor,
+               ref_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel of ``knn.min_dist_sq`` (the 1-NN's d2-only mode): each query's
+    least squared distance to a valid ref, +inf with none."""
+    return _nn(queries, refs, ref_mask, index=False)[0]

@@ -111,6 +111,12 @@ def test_nn_kernel(cuda, dtype, nq, nr):
     _equal(out, knn.nn_search_plain(q, r))
     _equal(knn.nn_search(q, r, ref_mask=mask),
            knn.nn_search_plain(q, r, ref_mask=mask))
+    # the d2-only mode, which min_dist_sq launches
+    before = dict(knn_cuda.LAUNCHES)
+    d2 = knn.min_dist_sq(q, r, ref_mask=mask)
+    assert knn_cuda.LAUNCHES == {**before, "nn_search_d2": before["nn_search_d2"] + 1}
+    torch.cuda.synchronize()
+    assert torch.equal(d2, knn.nn_search_plain(q, r, ref_mask=mask)[0])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -130,12 +136,17 @@ def test_nn_kernel_ties_and_no_valid_ref(cuda, dtype):
     d, i = knn.nn_search(Q, R, ref_mask=none)
     _equal((d, i), knn.nn_search_plain(Q, R, ref_mask=none))
     assert bool(torch.isinf(d).all()) and not bool(i.any())
+    for m in (None, mask, none):
+        d2 = knn.min_dist_sq(Q, R, ref_mask=m)
+        torch.cuda.synchronize()
+        assert torch.equal(d2, knn.nn_search_plain(Q, R, ref_mask=m)[0])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_nn_kernel_query_slices(cuda, dtype, monkeypatch):
     """Queries beyond one launch's grid go in slices, one launch each, with
-    the unsliced result (the grid's limit lowered to 1 024 queries)."""
+    the unsliced result (the grid's limit lowered to 1 024 queries), in
+    both modes."""
     from simpleicp_tpu_torch.ops import knn, knn_cuda
 
     rng = np.random.default_rng(11)
@@ -143,19 +154,82 @@ def test_nn_kernel_query_slices(cuda, dtype, monkeypatch):
     r = torch.as_tensor(rng.uniform(-5, 5, (3001, 3)), dtype=dtype, device=cuda)
     mask = torch.as_tensor(rng.random(3001) < 0.5, device=cuda)
     whole = knn.nn_search(q, r, ref_mask=mask)
-    monkeypatch.setattr(knn_cuda, "_MAX_QUERIES", 1024)
+    monkeypatch.setattr(knn_cuda, "_NN_MAX_QUERIES", 1024)
     before = knn_cuda.LAUNCHES["nn_search"]
     out = knn.nn_search(q, r, ref_mask=mask)
     assert knn_cuda.LAUNCHES["nn_search"] == before + 5
     _equal(out, whole)
     _equal(out, knn.nn_search_plain(q, r, ref_mask=mask))
+    before = knn_cuda.LAUNCHES["nn_search_d2"]
+    d2 = knn.min_dist_sq(q, r, ref_mask=mask)
+    assert knn_cuda.LAUNCHES["nn_search_d2"] == before + 5
+    torch.cuda.synchronize()
+    assert torch.equal(d2, whole[0])
+
+
+def _nn_edge_cases(dtype, dev, rng):
+    """(name, queries, refs, mask, reference mask): the 1-NN's tie and edge
+    cases. The reference is the plain version under the reference mask: a
+    NaN distance never wins in the kernel, where the plain argmin takes the
+    first NaN, so for refs with NaN coordinates the reference masks them."""
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+    g = np.arange(10.0)
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    # 2 500 queries (three query blocks of 1 024, the last ragged) at cell
+    # centres and edge midpoints, against 40 copies of the lattice: every
+    # answer is an exact tie across sub-tiles, tiles and reference chunks.
+    lq = T(lat[rng.choice(len(lat), 2500)] + 0.5 * rng.integers(0, 2, (2500, 3)))
+    lr = T(np.concatenate([lat] * 40))
+    cases = [("ties across tiles, chunks and query blocks", lq, lr, None, None)]
+    m = torch.as_tensor(rng.random(len(lr)) < 0.5, device=dev)
+    cases.append(("ties, masked", lq, lr, m, m))
+    # each query's nearest ref repeated at the start of every tile: every
+    # later tile's minimum equals the running best and must not take it
+    q = T(rng.uniform(0, 1, (1500, 3)))
+    r = rng.uniform(5, 6, (8192, 3))
+    r[::512] = np.asarray(q[0].cpu())
+    cases.append(("tile minimum equal to the running best", q, T(r), None, None))
+    cases.append(("all refs masked", q, T(r), torch.zeros(8192, dtype=torch.bool, device=dev),
+                  torch.zeros(8192, dtype=torch.bool, device=dev)))
+    rn = rng.uniform(0, 1, (5000, 3))
+    rn[1024:2048] = np.nan
+    rn[3000, 1] = np.nan
+    rn = T(rn)
+    finite = ~torch.isnan(rn).any(1)
+    cases.append(("a tile of NaN distances", q, rn, None, finite))
+    cases.append(("a tile of NaN distances, masked", q, rn, finite, finite))
+    # refs by decreasing distance from the queries: every sub-tile improves
+    r = rng.uniform(-1, 1, (20000, 3))
+    r = r[np.argsort(-(r ** 2).sum(1))]
+    cases.append(("refs by decreasing distance", T(rng.uniform(-0.1, 0.1, (3000, 3))),
+                  T(r), None, None))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nn_kernel_modes_edge_cases(cuda, dtype):
+    """Both 1-NN modes bit-equal to the plain version on ties that fall in
+    different tiles, chunks and query blocks, a ragged query count, a tile
+    minimum equal to the running best, no valid ref, NaN distances and the
+    index mode's worst order."""
+    from simpleicp_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(17)
+    for name, q, r, m, ref_m in _nn_edge_cases(dtype, cuda, rng):
+        d, i = knn.nn_search(q, r, ref_mask=m)
+        d2 = knn.min_dist_sq(q, r, ref_mask=m)
+        pd, pi = knn.nn_search_plain(q, r, ref_mask=ref_m)
+        torch.cuda.synchronize()
+        assert torch.equal(i, pi), name
+        assert torch.equal(d, pd), name
+        assert torch.equal(d2, pd), name
 
 
 def test_gated_icp_register_on_the_card(cuda):
-    """The gated path on the card: one 1-NN launch (the gate), one k-NN
-    launch, one match launch per iteration; float64 on the card equal to
-    float64 on the CPU in iterations, selection and last matches, H within
-    1e-9."""
+    """The gated path on the card: one 1-NN launch (the gate, in the
+    d2-only mode), one k-NN launch, one match launch per iteration;
+    float64 on the card equal to float64 on the CPU in iterations,
+    selection and last matches, H within 1e-9."""
     from simpleicp_tpu_torch import IcpConfig
     from simpleicp_tpu_torch.models.icp import _icp_register
     from simpleicp_tpu_torch.ops import knn_cuda
@@ -179,7 +253,7 @@ def test_gated_icp_register_on_the_card(cuda):
     knn_cuda.reset_launch_counts()
     g, gc = run(cuda)
     assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations),
-                                 "knn_search": 1, "nn_search": 1}
+                                 "knn_search": 1, "nn_search": 0, "nn_search_d2": 1}
     c, cc = run("cpu")
     assert int(g.n_iterations) == int(c.n_iterations)
     assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
@@ -219,7 +293,7 @@ def test_icp_register_on_the_card(cuda):
     knn_cuda.reset_launch_counts()
     g, gc = run(cuda)
     assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations), "knn_search": 1,
-                                 "nn_search": 0}
+                                 "nn_search": 0, "nn_search_d2": 0}
     c, cc = run("cpu")
     assert int(g.n_iterations) == int(c.n_iterations)
     assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
@@ -243,6 +317,10 @@ def test_wrappers_check_their_inputs(cuda):
         knn_cuda.nn_search_cuda(q, q, torch.ones(5, dtype=torch.bool, device=cuda))
     with pytest.raises(TypeError):
         knn_cuda.nn_search_cuda(q, q, torch.ones(4, device=cuda))
+    with pytest.raises(ValueError):
+        knn_cuda.nn_d2_cuda(q, q, torch.ones(5, dtype=torch.bool, device=cuda))
+    with pytest.raises(TypeError):
+        knn_cuda.nn_d2_cuda(q, q.double())
 
 
 # ------------------------------------------------------------ dilate kernel
@@ -284,12 +362,16 @@ def _dilate_cases():
     return cases
 
 
-def test_dilate_kernel(cuda):
+@pytest.mark.parametrize("variant", [None, (16, 8), (8, 8)])
+def test_dilate_kernel(cuda, variant, monkeypatch):
     """Bit-equal to the plain version on every case; one launch per call
-    with a non-empty stencil."""
+    with a non-empty stencil; with the wrapper's choice of the kernel's
+    (warps, rows) instantiation, and with each one forced."""
     from simpleicp_tpu_torch.ops import dilate_cuda
     from simpleicp_tpu_torch.ops.dilate_gate import dilate_packed_multi, dilate_packed_multi_plain
 
+    if variant is not None:
+        monkeypatch.setattr(dilate_cuda, "_VARIANTS", (variant,))
     for name, occ, stencils in _dilate_cases():
         t = torch.from_numpy(np.ascontiguousarray(occ).view(np.int32)).to(cuda)
         before = dilate_cuda.LAUNCHES["dilate"]
@@ -323,9 +405,9 @@ def test_dilate_wrapper_checks_its_inputs(cuda):
 
 def test_dilate_gated_icp_register_on_the_card(cuda):
     """gate_method="dilate" on the card: one dilate launch, one 1-NN launch
-    (the band), the brute-gated run's selection, and float64 on the card
-    equal to float64 on the CPU (iterations, selection, last matches, H
-    within 1e-9)."""
+    (the band, in the d2-only mode), the brute-gated run's selection, and
+    float64 on the card equal to float64 on the CPU (iterations, selection,
+    last matches, H within 1e-9)."""
     from simpleicp_tpu_torch import IcpConfig
     from simpleicp_tpu_torch.models.icp import _icp_register
     from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
@@ -352,7 +434,7 @@ def test_dilate_gated_icp_register_on_the_card(cuda):
     g, gc = run(cuda, "dilate")
     assert dilate_cuda.LAUNCHES == {"dilate": 1}
     assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations),
-                                 "knn_search": 1, "nn_search": 1}
+                                 "knn_search": 1, "nn_search": 0, "nn_search_d2": 1}
     b, _ = run(cuda, "brute")
     assert torch.equal(g.sel_idx, b.sel_idx) and torch.equal(g.H, b.H)
     c, cc = run("cpu", "dilate")

@@ -91,6 +91,7 @@ def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
     monkeypatch.setattr(knn_cuda, "match_transform_cuda", boom)
     monkeypatch.setattr(knn_cuda, "knn_search_cuda", boom)
     monkeypatch.setattr(knn_cuda, "nn_search_cuda", boom)
+    monkeypatch.setattr(knn_cuda, "nn_d2_cuda", boom)
     monkeypatch.setattr(dilate_cuda, "dilate_cuda", boom)
     X = np.random.default_rng(1).uniform(-1, 1, (400, 3)) * [1, 1, 0.1]
     res = icp_register(X, X + 0.01, IcpConfig(correspondences=30), device="cpu")
@@ -118,6 +119,8 @@ def test_wrappers_refuse_cpu_tensors():
         knn_cuda.knn_search_cuda(q, q, 2)
     with pytest.raises(ValueError, match="CUDA"):
         knn_cuda.nn_search_cuda(q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        knn_cuda.nn_d2_cuda(q, q)
 
 
 def _xyz_pair(tmp_path):
