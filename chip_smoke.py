@@ -14,7 +14,7 @@ Phases, each printing one JSON object on a line of its own:
            (d2-only and index), also on ties across tiles, reference chunks
            and query blocks, a ragged query count, a tile minimum equal to
            the running best, NaN distances and refs by decreasing distance;
-           the dilation with each (warps, rows) instantiation. Tolerance:
+           the dilation up to the largest reach it takes (18). Tolerance:
            none, indices equal and d2 bit-equal;
   main     icp_register at 100 000 x 100 000 (default config): float32 on the
            card recovers the known motion; float64 on the card equals float64
@@ -47,7 +47,9 @@ Phases, each printing one JSON object on a line of its own:
            plain versions' times; the 1-NN in both modes at 100k x 100k, at
            the gated 1M pair and at the 1.2M band sweep's shape, its index
            mode's worst order, beside the unfused floor (9 issues a pair);
-           the dilation with each instantiation; the dilate gate's stages
+           the d2-only mode under its whole-wave chunk plan and under the
+           uniform plan of the other kernels, and a block's fixed cost;
+           the dilation; the dilate gate's stages
            at 1.2M and 10M; the slab join's cost model (pair rate,
            per-launch and host-sort costs); registration times; host reads;
            memory;
@@ -494,32 +496,18 @@ def kernels_dilate(torch, cmp):
     cmp.grids("every bit set", T(np.full((3, 100, 90), 0xFFFFFFFF, np.uint32)), [a, b])
     pts = torch.as_tensor(rng.random((20_000, 3)) * np.array([8.0, 6.0, 4.0]),
                           dtype=torch.float32, device="cuda")
-    plans = {}
     for div in (16, 8, 4, 2):
         plan = plan_dilate_gate(None, pts.cpu().numpy(), 1.0, cell_div=div)
         words = _pack_occupancy_device(pts, plan=plan).reshape(plan.wz, *plan.dims[:2])
-        plans[div] = (plan, words)
         cmp.grids(f"plan cell_div {div}", words, [plan.in_offsets, plan.poss_offsets])
         full = torch.full_like(words, -1)
         cmp.grids(f"plan cell_div {div}, every bit set", full,
                   [plan.in_offsets, plan.poss_offsets])
-    # each (warps, rows) instantiation of the kernel, forced
-    from simpleicp_tpu_torch.ops import dilate_cuda
-
-    plan, words = plans[16]
-    full = torch.full_like(words, -1)
-    saved = dilate_cuda._VARIANTS
-    try:
-        for v in saved:
-            dilate_cuda._VARIANTS = (v,)
-            cmp.grids(f"{v} synthetic (9, 300, 257)", T(occ(9, 300, 257)), [a, b])
-            cmp.grids(f"{v} carries z=31", T(carry), [((0, 0, 31), (1, 0, 0)), ((0, 0, 31),)])
-            cmp.grids(f"{v} unstructured stencil", T(occ(4, 50, 61, 0.05)), [odd, odd[:7]])
-            cmp.grids(f"{v} plan cell_div 16, every bit set", full,
-                      [plan.in_offsets, plan.poss_offsets])
-            cmp.grids(f"{v} plan cell_div 16", words, [plan.in_offsets, plan.poss_offsets])
-    finally:
-        dilate_cuda._VARIANTS = saved
+    # the largest reach the kernel takes (every plan of the gate: at most 17)
+    wide = tuple((int(dx), int(dy), int(z)) for dx, dy, z in
+                 zip(rng.integers(-18, 19, 60), rng.integers(-18, 19, 60),
+                     rng.integers(0, 32, 60))) + ((18, -18, 3), (-18, 18, 0))
+    cmp.grids("reach 18", T(occ(5, 300, 100, 0.01)), [wide, wide[:11]])
 
 
 def _register(torch, X_fix, X_mov, dtype, device, gate=None, method="auto"):
@@ -1005,6 +993,76 @@ def nn_times(torch, Q, R, dtype_bytes, reps, plain_reps=0):
     return out
 
 
+def uniform_nn_plan(n_q, n_r, resident):
+    """The chunk plan of the match and k-NN kernels (``_plan_chunks``: about
+    two waves of blocks, no chunk under the minimum) at the 1-NN's queries
+    per block: the baseline of the wrapper's whole-wave plan."""
+    from simpleicp_tpu_torch.ops import knn_cuda
+
+    q_blocks = -(-n_q // knn_cuda._NN_BLOCK)
+    want = max(1, min(-(-n_r // knn_cuda._NN_MIN_CHUNK), -(-2 * resident // q_blocks)))
+    chunk_len = -(-n_r // want)
+    return chunk_len, -(-n_r // chunk_len)
+
+
+def nn_plans(torch, Q, R, reps):
+    """The d2-only 1-NN under the wrapper's chunk plan, which fills the
+    resident blocks in whole waves (``waves``), and under the uniform plan
+    (``uniform_nn_plan``), alternated twice: each plan, its share of the
+    last wave's blocks in use, and its ms per call."""
+    from simpleicp_tpu_torch.ops import knn, knn_cuda
+
+    resident = knn_cuda._nn_resident(Q.device, Q.dtype, False)
+    n_q, n_r = Q.shape[0], R.shape[0]
+    q_blocks = -(-n_q // knn_cuda._NN_BLOCK)
+    plans = {"waves": knn_cuda._plan_nn_chunks(n_q, n_r, resident),
+             "uniform": uniform_nn_plan(n_q, n_r, resident)}
+    out = {k: {"chunk_len": c, "n_chunks": n, "blocks": q_blocks * n,
+               "waves": -(-q_blocks * n // resident), "ms": []}
+           for k, (c, n) in plans.items()}
+    saved = knn_cuda._plan_nn_chunks
+    try:
+        for _ in range(2):
+            for k, plan in plans.items():
+                knn_cuda._plan_nn_chunks = lambda *a, plan=plan: plan
+                out[k]["ms"].append(cuda_ms(torch, lambda: knn.min_dist_sq(Q, R), reps))
+    finally:
+        knn_cuda._plan_nn_chunks = saved
+    return {"resident_blocks": resident, **out}
+
+
+def nn_block_cost(torch, reps):
+    """The d2-only 1-NN's fixed cost of a block, in refs scanned (the
+    comment of the chunk plan's _NN_WAVE_COST cites it): one query block
+    per resident block against 262 144 random refs in c = 1 .. 1024
+    chunks is c whole waves of the same pairs, so ms = A + B c, where A is the scan of the refs
+    and B a block's fixed part and its share of the reduce pass; a block
+    costs what B n_r / A refs cost."""
+    import numpy as np
+
+    from simpleicp_tpu_torch.ops import knn, knn_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    dev = torch.device("cuda")
+    resident = knn_cuda._nn_resident(dev, torch.float32, False)
+    n_r = 262_144
+    Q = torch.rand((resident * knn_cuda._NN_BLOCK, 3), generator=g, device=dev)
+    R = torch.rand((n_r, 3), generator=g, device=dev)
+    cs = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+    ms = []
+    saved = knn_cuda._plan_nn_chunks
+    try:
+        for c in cs:
+            knn_cuda._plan_nn_chunks = lambda *a, c=c: (n_r // c, c)
+            ms.append(cuda_ms(torch, lambda: knn.min_dist_sq(Q, R), reps))
+    finally:
+        knn_cuda._plan_nn_chunks = saved
+    B, A = np.polyfit(np.array(cs, float), np.array(ms), 1)
+    return {"queries": Q.shape[0], "refs": n_r, "chunks": list(cs), "ms": ms,
+            "fit_A_ms": float(A), "fit_B_ms_per_chunk": float(B),
+            "block_cost_refs": float(B * n_r / A)}
+
+
 # Hopper SM: 64 INT32 lanes; 132 SMs at the H100 SXM's 1.98 GHz boost clock
 # (NVIDIA data sheet and Hopper white paper, 700 W). A lane issues one LOP3
 # per clock: any boolean function of three 32-bit words, so up to two ORs.
@@ -1117,6 +1175,8 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
         }
         # the gate: every fixed point against the movable cloud
         row["nn_search"] = nn_times(torch, Xf, Xm, size, 10, plain_reps=2)
+        if dtype == torch.float32:
+            row["nn_search"]["chunk_plans"] = nn_plans(torch, Xf, Xm, 10)
         # the index mode's worst order: refs by decreasing distance from the
         # queries' centroid, so that each query's running best keeps falling
         Xw = Xm[torch.argsort(-((Xm - Xf.mean(0)) ** 2).sum(1))].contiguous()
@@ -1137,9 +1197,12 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
         Xm = torch.as_tensor(gated_big[1], dtype=torch.float32, device=dev)
         big = nn_times(torch, Xf, Xm, 4, 3)
         nn_rate = N_GATE_BIG * N_GATE_BIG / (big["ms"] / 1e3)
+        big["chunk_plans"] = nn_plans(torch, Xf, Xm, 2)
         emit({"phase": "times", "what": f"gate kernel at {N_GATE_BIG} x {N_GATE_BIG}, "
-              "float32 (the gated 1M pair's own clouds)", "nn_search": big,
-              "d2_pairs_per_s": nn_rate})
+              "float32 (the gated 1M pair's own clouds); its d2-only mode under the "
+              "whole-wave and the uniform chunk plans; a block's fixed cost",
+              "nn_search": big, "d2_pairs_per_s": nn_rate,
+              "nn_block_cost": nn_block_cost(torch, 5)})
         del Xf, Xm
 
     dilate_row = None
@@ -1150,7 +1213,6 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
             dilate_packed_multi_plain,
         )
 
-        from simpleicp_tpu_torch.ops import dilate_cuda
         from simpleicp_tpu_torch.ops.dilate_gate import classify_queries
 
         Xf, Xm0 = gate_inputs(torch, *dil["clouds"])
@@ -1159,34 +1221,23 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
         # against the whole transformed movable cloud
         band = Xf[classify_queries(Xf, Xm0, plan=plan)[1]].contiguous()
         band_row = nn_times(torch, band, Xm0, 4, 5)
+        band_row["chunk_plans"] = nn_plans(torch, band, Xm0, 5)
         occ = _pack_occupancy_device(Xm0, plan=plan).reshape(plan.wz, *plan.dims[:2])
         del Xf, Xm0, band
         rows = {}
         for label, st in (("IN+POSS", [plan.in_offsets, plan.poss_offsets]),
                           ("POSS", [plan.poss_offsets])):
             b, by = dilate_bound_ms(plan.n_words, [len(o) for o in st])
-            w, r = dilate_cuda._plan(tuple(tuple(o) for o in st))[:2]
             rows[label] = {
                 "ms": cuda_ms(torch, lambda: dilate_packed_multi(occ, st), 20),
                 "plain_ms": cuda_ms(torch, lambda: dilate_packed_multi_plain(occ, st), 1),
-                "bound_ms": b, "bound_by": by, "library_ms": None,
-                "warps_rows": [w, r]}
-        saved = dilate_cuda._VARIANTS
-        try:
-            for v in saved:
-                dilate_cuda._VARIANTS = (v,)
-                for label, st in (("IN+POSS", [plan.in_offsets, plan.poss_offsets]),
-                                  ("POSS", [plan.poss_offsets])):
-                    rows[f"{label} {v}"] = {
-                        "ms": cuda_ms(torch, lambda: dilate_packed_multi(occ, st), 20)}
-        finally:
-            dilate_cuda._VARIANTS = saved
+                "bound_ms": b, "bound_by": by, "library_ms": None}
         del occ
         dilate_row = rows["IN+POSS"]
         slab = slab_rates(torch)
         slab["pairs_per_s"] = nn_rate
         emit({"phase": "times", "what": f"dilate kernel at the {N_DILATE} x {N_DILATE} "
-              "pair's plan (warm L2; each (warps, rows) instantiation forced); the 1-NN at "
+              "pair's plan (warm L2); the 1-NN at "
               "the band sweep's shape; the gate's stages at 1.2M and 10M; the slab join "
               "cost model's rates (the pair rate: the d2-only 1-NN at the gated 1M pair)",
               "plan": plan_summary(plan), "dilate": rows, "nn_band_sweep": band_row,
@@ -1348,11 +1399,16 @@ def main(argv=None) -> int:
         modes = {"d2_only": gated_launches["nn_search_d2"], "index": gated_launches["nn_search"]}
         launches = {**main_info[0], "nn_search": sum(modes.values()),
                     "dilate": dil["launches"]["dilate"]}
+        # Only this run's measurements and the computed bound: the floor and
+        # the shapes stay in the `times` lines.
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        nn_keys = ("index_ms", "index_decreasing_order_ms")
         emit({"kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": REPLACES[name], "launches": launches[name],
-             "max_abs_err": errs[name], **times[name],
-             **({"launches_by_mode": modes} if name == "nn_search" else {})}
+             "max_abs_err": errs[name], **{k: times[name][k] for k in keys},
+             **({**{k: times[name][k] for k in nn_keys}, "launches_by_mode": modes}
+                if name == "nn_search" else {})}
             for name in KERNELS
         ]})
     check("jax" not in sys.modules, "JAX was imported during the run")

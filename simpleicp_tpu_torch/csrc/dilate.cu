@@ -42,8 +42,8 @@
 //   At P = 17 (cell_div 16) the five arrays of the 128 x 32 tile take
 //   163 x 66 x 20 bytes = 215 KB of dynamic shared memory (one block of
 //   16 warps per SM), above the 48 KB default, so the entry point raises
-//   the kernel's limit first. A 64 x 32 tile (8 warps) takes stencils of
-//   reach 19 to 30.
+//   the kernel's limit first. The tile takes stencils of reach up to 18
+//   (every plan of the gate: at most 17) within the 227 KB a block may use.
 //   Why 16 warps of 8 rows, and x-runs only (measured on the H100 with
 //   chip_smoke.py, PERF.md): 32 warps of 4 rows were no faster, 8 warps of
 //   8 rows 45 % slower, and taking the steep arcs as runs of consecutive
@@ -62,6 +62,10 @@
 namespace {
 
 constexpr int kLanes = 32;   // output columns (y) per block: one per lane
+constexpr int kWarps = 16;   // warps per block
+constexpr int kRows = 8;     // consecutive output rows (x) per thread
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileX = kWarps * kRows;  // output rows per block
 constexpr int kLMax = 8;     // longest run of consecutive dx one step ORs
 // Ints per level record of the table: z, the reach p of this level and
 // every later one, then for each of two stencils kLMax + 1 run offsets
@@ -144,14 +148,11 @@ __device__ __forceinline__ void or_level(const uint32_t* oz, const int* runs,
   or_group<8>(oz, runs, st, acc);
 }
 
-template <int kWarps, int kRows>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 dilate_kernel(const uint32_t* __restrict__ occ, int wz, int nx, int ny,
               const int* __restrict__ table, int table_len, int n_levels,
               int n_st, int P, int TH, uint32_t* __restrict__ out0,
               uint32_t* __restrict__ out1) {
-  constexpr int kThreads = kWarps * 32;
-  constexpr int kTileX = kWarps * kRows;
   extern __shared__ uint32_t smem[];
   const int tw = kLanes + 2 * P;
   const int th = kTileX + 2 * P;
@@ -251,27 +252,6 @@ dilate_kernel(const uint32_t* __restrict__ occ, int wz, int nx, int ny,
   }
 }
 
-template <int kWarps, int kRows>
-int launch_dilate(const void* occ, int wz, int nx, int ny, const void* table,
-                  int table_len, int n_levels, int n_st, int P, int TH,
-                  void* out0, void* out1, void* stream) {
-  constexpr int kTileX = kWarps * kRows;
-  if (TH < kTileX + 2 * P) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(uint32_t) * (((table_len + 3) & ~3) +
-                                          5 * static_cast<size_t>(TH) * (kLanes + 2 * P));
-  cudaError_t err = cudaFuncSetAttribute(dilate_kernel<kWarps, kRows>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((ny + kLanes - 1) / kLanes, (nx + kTileX - 1) / kTileX, wz);
-  dilate_kernel<kWarps, kRows><<<grid, kWarps * 32, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(occ), wz, nx, ny, static_cast<const int*>(table),
-      table_len, n_levels, n_st, P, TH, static_cast<uint32_t*>(out0),
-      static_cast<uint32_t*>(out1));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -279,23 +259,26 @@ extern "C" {
 // occ: (wz, nx, ny) words; table: table_len int32 on the device, n_levels
 // level records (kLevelInts each, levels by ascending z) then the run
 // offsets; n_st stencils (1 or 2); P: the largest |dx|, |dy|; TH: the
-// halo'd tile's row stride, odd and at least tile_x + 2 P, where tile_x is
-// warps x rows; (warps, rows) one of (16, 8) and (8, 8). out1 is
-// written only when n_st == 2.
+// halo'd tile's row stride, odd and at least kTileX + 2 P. out1 is written
+// only when n_st == 2.
 int simpleicp_dilate(const void* occ, int wz, int nx, int ny, const void* table,
                      int table_len, int n_levels, int n_st, int P, int TH,
-                     int warps, int rows, void* out0, void* out1,
-                     void* stream) {
-  if (n_st < 1 || n_st > 2 || n_levels < 1 || P < 0 || wz < 1 ||
-      nx < 1 || ny < 1 || table_len < n_levels * kLevelInts)
+                     void* out0, void* out1, void* stream) {
+  if (n_st < 1 || n_st > 2 || n_levels < 1 || P < 0 || wz < 1 || nx < 1 ||
+      ny < 1 || table_len < n_levels * kLevelInts || TH < kTileX + 2 * P)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (warps == 8 && rows == 8)
-    return launch_dilate<8, 8>(occ, wz, nx, ny, table, table_len, n_levels, n_st,
-                               P, TH, out0, out1, stream);
-  if (warps == 16 && rows == 8)
-    return launch_dilate<16, 8>(occ, wz, nx, ny, table, table_len, n_levels, n_st,
-                                P, TH, out0, out1, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(uint32_t) * (((table_len + 3) & ~3) +
+                                          5 * static_cast<size_t>(TH) * (kLanes + 2 * P));
+  cudaError_t err = cudaFuncSetAttribute(dilate_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((ny + kLanes - 1) / kLanes, (nx + kTileX - 1) / kTileX, wz);
+  dilate_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(occ), wz, nx, ny, static_cast<const int*>(table),
+      table_len, n_levels, n_st, P, TH, static_cast<uint32_t*>(out0),
+      static_cast<uint32_t*>(out1));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -29,12 +29,8 @@ LAUNCHES = {"dilate": 0}
 _LANES = 32             # csrc/dilate.cu kLanes: output columns (y) per block
 _LMAX = 8               # csrc/dilate.cu kLMax: longest run of one step
 _LEVEL_INTS = 2 + 2 * (_LMAX + 1)   # csrc/dilate.cu kLevelInts
+_TILE_X = 128           # csrc/dilate.cu kTileX: output rows (x) per block
 _SMEM_MAX = 232_448     # dynamic shared memory a block may use on the H100
-# The kernel's (warps, rows per thread) instantiations in order of
-# preference; the first whose shared memory fits the stencil's reach runs:
-# a 128 x 32 output tile up to reach 18 (every plan of the gate: at most
-# 17), a 64 x 32 tile up to reach 30.
-_VARIANTS = ((16, 8), (8, 8))
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -54,10 +50,10 @@ def _library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(_build.build("dilate")))
-            # occ, wz, nx, ny, table, table_len, n_levels, n_st, P, TH, warps,
-            # rows, out0, out1, stream
+            # occ, wz, nx, ny, table, table_len, n_levels, n_st, P, TH, out0,
+            # out1, stream
             lib.simpleicp_dilate.argtypes = [_P, _I, _I, _I, _P, _I, _I, _I, _I,
-                                             _I, _I, _I, _P, _P, _P]
+                                             _I, _P, _P, _P]
             lib.simpleicp_dilate.restype = _I
             _lib = lib
         return _lib
@@ -83,9 +79,9 @@ def _runs(pairs) -> List[Tuple[int, int, int]]:
 
 
 @functools.lru_cache(maxsize=16)
-def _tables(stencils: Stencils, tile_x: int):
-    """The kernel's table of one or two non-empty stencils for an output
-    tile of ``tile_x`` rows: (table, n_levels, reach P, row stride TH).
+def _tables(stencils: Stencils):
+    """The kernel's table of one or two non-empty stencils: (table,
+    n_levels, reach P, row stride TH).
 
     ``table`` is a list of int32: one record per z level that holds an
     entry (ascending z): z, the reach of that level and every later one
@@ -94,7 +90,7 @@ def _tables(stencils: Stencils, tile_x: int):
     word offset per run, -dy * TH - (a + L - 1): from a thread's output
     position to the first of the kRows + L - 1 words the run reads."""
     reach = max(max(abs(dx), abs(dy)) for st in stencils for dx, dy, _ in st)
-    th = (tile_x + 2 * reach) | 1
+    th = (_TILE_X + 2 * reach) | 1
     head, runs = [], []
     for z in sorted({z for st in stencils for _, _, z in st}):
         head += [z, max(max(abs(dx), abs(dy)) for st in stencils
@@ -116,25 +112,26 @@ def _smem_bytes(table_len: int, reach: int, th: int) -> int:
 
 
 def _plan(stencils: Stencils):
-    """(warps, rows, table, n_levels, reach, TH): the first instantiation
-    of _VARIANTS whose shared memory fits; raises ValueError if none."""
-    for warps, rows in _VARIANTS:
-        table, n_levels, reach, th = _tables(stencils, warps * rows)
-        if _smem_bytes(len(table), reach, th) <= _SMEM_MAX:
-            return warps, rows, table, n_levels, reach, th
-    raise ValueError(f"stencil reach {reach} needs more shared memory than a block has")
+    """(table, n_levels, reach, TH) of the stencils; raises ValueError if
+    the halo'd tile and the table do not fit a block's shared memory (reach
+    above 18; every plan of the dilate gate has reach at most 17)."""
+    table, n_levels, reach, th = _tables(stencils)
+    if _smem_bytes(len(table), reach, th) > _SMEM_MAX:
+        raise ValueError(f"stencil reach {reach} needs more shared memory than a "
+                         "block has (the kernel takes reach up to 18)")
+    return table, n_levels, reach, th
 
 
 @functools.lru_cache(maxsize=16)
-def _device_table(stencils: Stencils, tile_x: int, device: str) -> torch.Tensor:
-    return torch.tensor(_tables(stencils, tile_x)[0], dtype=torch.int32, device=device)
+def _device_table(stencils: Stencils, device: str) -> torch.Tensor:
+    return torch.tensor(_tables(stencils)[0], dtype=torch.int32, device=device)
 
 
 def dilate_cuda(occ: torch.Tensor, offsets_list) -> List[torch.Tensor]:
     """Kernel of ``dilate_gate.dilate_packed_multi``: one output grid per
     stencil of ``offsets_list``; at most two of them non-empty (an empty
     stencil's grid is zeros, and with no non-empty stencil nothing is
-    launched)."""
+    launched), of reach (largest |dx|, |dy|) up to 18."""
     if occ.device.type != "cuda":
         raise ValueError(f"occ must be a CUDA tensor, got {occ.device}")
     if occ.dtype != torch.int32:
@@ -156,11 +153,11 @@ def dilate_cuda(occ: torch.Tensor, offsets_list) -> List[torch.Tensor]:
     if not live:
         return outs
     key = tuple(stencils[i] for i in live)
-    warps, rows, table, n_levels, reach, th = _plan(key)
+    table, n_levels, reach, th = _plan(key)
     wz, nx, ny = occ.shape
-    if wz > 65535 or -(-nx // (warps * rows)) > 65535:
+    if wz > 65535 or -(-nx // _TILE_X) > 65535:
         raise ValueError(f"grid {tuple(occ.shape)} too large for one launch")
-    dev_table = _device_table(key, warps * rows, str(occ.device))
+    dev_table = _device_table(key, str(occ.device))
     out0 = outs[live[0]]
     out1 = outs[live[1]] if len(live) == 2 else None
     lib = _library()
@@ -168,7 +165,7 @@ def dilate_cuda(occ: torch.Tensor, offsets_list) -> List[torch.Tensor]:
         stream = torch.cuda.current_stream(occ.device).cuda_stream
         err = lib.simpleicp_dilate(
             occ.data_ptr(), wz, nx, ny, dev_table.data_ptr(), len(table), n_levels,
-            len(live), reach, th, warps, rows, out0.data_ptr(),
+            len(live), reach, th, out0.data_ptr(),
             None if out1 is None else out1.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dilate kernel launch failed: CUDA error {err}")

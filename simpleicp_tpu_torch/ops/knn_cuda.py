@@ -43,10 +43,14 @@ _NN_BLOCK = 4 * _THREADS
 _NN_SUB = 32
 _NN_MAX_QUERIES = 65535 * _NN_BLOCK  # queries per 1-NN launch
 _NN_MIN_CHUNK = 256    # fewest references a 1-NN block scans
-# A 1-NN block's fixed cost (queries, the first tile's load, the writes),
-# counted as references scanned, and the most chunks a plan considers.
-_NN_BLOCK_COST = 512
-_NN_MAX_CHUNKS = 1024
+# The chunk plan's cost of a wave beyond its scan, in references. A block's
+# own fixed cost (its queries, the first tile, the writes and its share of
+# the reduce pass) is only 6.6 references (chip_smoke.py nn_block_cost; H100
+# 80GB HBM3, 700 W); 512 keeps the plans to few, long chunks, and so the
+# partials small: with 8 the timed shapes would split into 52-101 chunks for
+# 1.0-3.4 % less work on the busiest SM.
+_NN_WAVE_COST = 512
+_NN_MAX_CHUNKS = 1024  # the most chunks a plan considers
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -129,10 +133,14 @@ def _plan_chunks(n_q: int, n_r: int) -> Tuple[int, int]:
 def _plan_nn_chunks(n_q: int, n_r: int, resident: int) -> Tuple[int, int]:
     """(chunk_len, n_chunks) of the 1-NN's reference axis. Blocks of equal
     work run in waves of ``resident`` (the card's SMs times the scan's
-    blocks per SM), so a grid that leaves the last wave part empty wastes
-    that part: pick the split whose waves times (chunk + a block's fixed
-    cost) is least, with no chunk under _NN_MIN_CHUNK references; ties go
-    to fewer chunks."""
+    blocks per SM), and whole waves leave no SM with more blocks than
+    another: pick the split whose waves times (chunk + _NN_WAVE_COST) is
+    least, with no chunk under _NN_MIN_CHUNK references; ties go to fewer
+    chunks. Against the uniform plan of the other kernels (about two
+    waves; chip_smoke.py nn_plans, H100 80GB HBM3, 700 W) the d2-only scan
+    ran 2.1 % faster at 100k x 100k and 7.4 % at the dilate gate's band
+    sweep (71 551 x 1.2M), as the blocks on the busiest SM predict; at 1M x
+    1M both pick the same plan."""
     q_blocks = -(-n_q // _NN_BLOCK)
     best = None
     for want in range(1, max(1, min(n_r // _NN_MIN_CHUNK, _NN_MAX_CHUNKS)) + 1):
@@ -140,7 +148,7 @@ def _plan_nn_chunks(n_q: int, n_r: int, resident: int) -> Tuple[int, int]:
         n_chunks = -(-n_r // chunk_len)
         waves = -(-q_blocks * n_chunks // resident)
         scanned = -(-chunk_len // _NN_SUB) * _NN_SUB
-        cost = waves * (scanned + _NN_BLOCK_COST)
+        cost = waves * (scanned + _NN_WAVE_COST)
         if best is None or cost < best[0]:
             best = (cost, chunk_len, n_chunks)
     return best[1], best[2]

@@ -43,9 +43,9 @@ def _decode(table, n_levels, reach, th):
     return named, reach_of
 
 
-def _check(stencils, tile_x):
-    table, n_levels, reach, th = dilate_cuda._tables(stencils, tile_x)
-    assert th % 2 == 1 and th >= tile_x + 2 * reach
+def _check(stencils):
+    table, n_levels, reach, th = dilate_cuda._tables(stencils)
+    assert th % 2 == 1 and th >= dilate_cuda._TILE_X + 2 * reach
     assert reach == max(max(abs(dx), abs(dy)) for st in stencils for dx, dy, _ in st)
     named, reach_of = _decode(table, n_levels, reach, th)
     want = {}
@@ -74,20 +74,24 @@ def _plans():
 
 
 @pytest.mark.parametrize("name,plan", list(_plans()), ids=lambda v: v if isinstance(v, str) else "")
-@pytest.mark.parametrize("warps,rows", dilate_cuda._VARIANTS)
-def test_tables_name_every_entry_of_real_plans(name, plan, warps, rows):
-    both = (plan.in_offsets, plan.poss_offsets)
-    _check(both, warps * rows)
-    _check((plan.poss_offsets,), warps * rows)
+@pytest.mark.parametrize("which", ["IN+POSS", "POSS"])
+def test_tables_name_every_entry_of_real_plans(name, plan, which):
+    """Both stencils, as the gate's first dilation takes them, and POSS
+    alone, as the band-ref compaction's second dilation does."""
+    _check((plan.in_offsets, plan.poss_offsets) if which == "IN+POSS"
+           else (plan.poss_offsets,))
 
 
-def test_real_plans_fit_the_preferred_variant():
-    """Every plan of the gate fits the first variant's shared memory, and
-    the wrapper's plan picks it."""
+def test_real_plans_fit_shared_memory():
+    """Every plan of the gate has reach at most 17 and fits a block's
+    shared memory; reach 18 still fits, 19 does not."""
     for name, plan in _plans():
-        w, r, table, n_levels, reach, th = dilate_cuda._plan((plan.in_offsets, plan.poss_offsets))
-        assert (w, r) == dilate_cuda._VARIANTS[0], name
+        table, n_levels, reach, th = dilate_cuda._plan((plan.in_offsets, plan.poss_offsets))
+        assert reach <= 17, name
         assert dilate_cuda._smem_bytes(len(table), reach, th) <= dilate_cuda._SMEM_MAX
+    dilate_cuda._plan((((18, -18, 0), (0, 0, 5)),))
+    with pytest.raises(ValueError, match="reach up to 18"):
+        dilate_cuda._plan((((19, 0, 0),),))
 
 
 def _unstructured(seed, n, reach):
@@ -111,9 +115,11 @@ UNSTRUCTURED = {
 
 
 @pytest.mark.parametrize("name", list(UNSTRUCTURED))
-@pytest.mark.parametrize("warps,rows", dilate_cuda._VARIANTS)
-def test_tables_name_every_entry_of_unstructured_stencils(name, warps, rows):
-    _check(UNSTRUCTURED[name], warps * rows)
+@pytest.mark.parametrize("order", ["as given", "reversed"])
+def test_tables_name_every_entry_of_unstructured_stencils(name, order):
+    """The stencils in the kernel's slots 0 and 1, and swapped."""
+    st = UNSTRUCTURED[name]
+    _check(st if order == "as given" else st[::-1])
 
 
 def test_runs_are_maximal_and_short():
@@ -131,3 +137,54 @@ def test_runs_are_maximal_and_short():
 def test_reach_beyond_shared_memory_raises():
     with pytest.raises(ValueError, match="shared memory"):
         dilate_cuda._plan((((60, 0, 1),),))
+
+
+ROWS = 8   # csrc/dilate.cu kRows: consecutive output rows a thread ORs into
+
+
+def _loads_per_or(stencils, one_pass):
+    """Shared loads per OR of the kernel's thread patch (ROWS rows of one
+    column): a window of consecutive dx at one (z, dy) costs ROWS + span - 1
+    loads. Without ``one_pass``, the wrapper's runs of each stencil apart;
+    with it, one pass over both stencils that merges neighbouring runs of
+    either stencil into one window, across a gap, wherever that loads fewer
+    words (windows up to 16 wide). Returns (loads per OR, the (z, dy)
+    rows where an IN run touches a POSS run)."""
+    loads = touching = 0
+    for z in sorted({e[2] for st in stencils for e in st}):
+        for dy in sorted({e[1] for st in stencils for e in st if e[2] == z}):
+            runs = [[(a, a + n - 1) for _, a, n in dilate_cuda._runs(
+                [(dx, d) for dx, d, zz in st if zz == z and d == dy])] for st in stencils]
+            if len(runs) == 2:
+                touching += any(a2 == e1 + 1 or e2 == a1 - 1
+                                for a1, e1 in runs[0] for a2, e2 in runs[1])
+            windows = sorted(r for rs in runs for r in rs)
+            if one_pass:
+                merged = [windows[0]]
+                for a, e in windows[1:]:
+                    a0, e0 = merged[-1]
+                    if a - e0 - 1 < ROWS - 1 and max(e, e0) - a0 < 16:
+                        merged[-1] = (a0, max(e, e0))
+                    else:
+                        merged.append((a, e))
+                windows = merged
+            loads += sum(ROWS + e - a for a, e in windows)
+    return loads / (ROWS * sum(len(st) for st in stencils)), touching
+
+
+def test_one_pass_over_both_stencils_would_save_little():
+    """The kernel walks IN's and POSS's runs of a level in two passes. On
+    the gate's plans no IN run touches a POSS run at one (z, dy), so one
+    pass shares a loaded word only by loading across the gap between
+    them. At the 1.2M cell's plan (cell_div 16) the wrapper's runs need
+    0.651 shared loads per OR, and one pass with merged windows 0.580:
+    11 % fewer."""
+    figures = {}
+    for name, plan in _plans():
+        both = (plan.in_offsets, plan.poss_offsets)
+        runs, touching = _loads_per_or(both, one_pass=False)
+        merged, _ = _loads_per_or(both, one_pass=True)
+        assert touching == 0, name
+        assert merged <= runs, name
+        figures[name] = (round(runs, 3), round(merged, 3))
+    assert figures["1.2M cell"] == (0.651, 0.580)

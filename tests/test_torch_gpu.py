@@ -362,17 +362,20 @@ def _dilate_cases():
     return cases
 
 
-@pytest.mark.parametrize("variant", [None, (16, 8), (8, 8)])
-def test_dilate_kernel(cuda, variant, monkeypatch):
-    """Bit-equal to the plain version on every case; one launch per call
-    with a non-empty stencil; with the wrapper's choice of the kernel's
-    (warps, rows) instantiation, and with each one forced."""
+def test_dilate_kernel(cuda):
+    """Bit-equal to the plain version on every case, and at the largest
+    reach the kernel takes (18); one launch per call with a non-empty
+    stencil."""
     from simpleicp_tpu_torch.ops import dilate_cuda
     from simpleicp_tpu_torch.ops.dilate_gate import dilate_packed_multi, dilate_packed_multi_plain
 
-    if variant is not None:
-        monkeypatch.setattr(dilate_cuda, "_VARIANTS", (variant,))
-    for name, occ, stencils in _dilate_cases():
+    rng = np.random.default_rng(23)
+    wide = tuple((int(dx), int(dy), int(z)) for dx, dy, z in
+                 zip(rng.integers(-18, 19, 30), rng.integers(-18, 19, 30), rng.integers(0, 32, 30)))
+    wide += ((18, -18, 3), (-18, 18, 0))
+    occ18 = np.where(rng.random((3, 150, 70)) < 0.01,
+                     rng.integers(0, 2**32, (3, 150, 70), dtype=np.uint32), np.uint32(0))
+    for name, occ, stencils in _dilate_cases() + [("reach 18", occ18, [wide, wide[:9]])]:
         t = torch.from_numpy(np.ascontiguousarray(occ).view(np.int32)).to(cuda)
         before = dilate_cuda.LAUNCHES["dilate"]
         got = dilate_packed_multi(t, stencils)
