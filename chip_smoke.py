@@ -43,8 +43,13 @@ Phases, each printing one JSON object on a line of its own:
            and the blocked slab join run, masks equal to brute;
   cli      python3 -m simpleicp_tpu_torch on a gated 100 000-point xyz pair,
            as a subprocess on the card: its lines and its exported cloud;
-  times    kernel times (CUDA events, warm L2) beside their bounds and the
-           plain versions' times; the 1-NN in both modes at 100k x 100k, at
+  times    kernel times (CUDA events, warm L2; the match and the k-NN as
+           CUDA-graph replays, so that the wrappers' host work does not set
+           the pace) beside their bounds and the plain versions' times; the
+           match and the k-NN at 1000 x 100k (the k-NN at k=10, 32, 64 and
+           under other chunk counts) and at the 1.34M cell's selection, the
+           k-NN at 100k x 100k (every point a query, as estimate_normals
+           calls it); the 1-NN in both modes at 100k x 100k, at
            the gated 1M pair and at the 1.2M band sweep's shape, its index
            mode's worst order, beside the unfused floor (9 issues a pair);
            the d2-only mode under its whole-wave chunk plan and under the
@@ -213,19 +218,116 @@ def phase_device(torch):
     return line
 
 
+def ptxas_table(log):
+    """Per entry function of one nvcc -Xptxas -v log: registers, stack
+    frame and spill bytes, names demangled by c++filt where it exists."""
+    import re
+
+    table, current = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            current = m.group(1)
+            table.setdefault(current, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and current:
+            table[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and current:
+            table[current]["registers"] = int(m.group(1))
+    names = list(table)
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) != len(names):
+            out = names
+    except (OSError, subprocess.SubprocessError):
+        out = names
+    short = (re.sub(r"\(.*", "", d.replace("(anonymous namespace)::", "")).replace("void ", "")
+             for d in out)
+    return {sn: table[n] for n, sn in zip(names, short)}
+
+
+def sass_hot_loops(lib_path):
+    """Per 1-NN and match scan kernel of a built library (cuobjdump -sass,
+    where the toolkit has it): the opcode counts of its hot loop, the
+    loop (a backward branch) that holds the most floating-point adds, and
+    its adds, so that instructions per pair = instructions / (adds / 5)
+    (each pair: three subtractions and two additions). The k-NN's scan is
+    left out: its step loop holds the insertion path inline, so a static
+    count is not what a step issues. None without cuobjdump."""
+    import collections
+    import re
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if not any(w in name for w in ("match_scan", "nn1_scan")):
+            continue
+        ops, addr_at, label_at, targets = [], {}, {}, []
+        for ln in part.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", ln)
+            if m:
+                label_at[m.group(1)] = len(ops)
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+            if not m:
+                continue
+            addr_at[int(m.group(1), 16)] = len(ops)
+            words = [w for w in m.group(2).split() if not w.startswith("@")]
+            op = words[0].split(".")[0] if words else "?"
+            t = re.search(r"`\((\.L_x_\d+)\)", m.group(2)) or re.search(r"\b0x([0-9a-f]+)", m.group(2))
+            ops.append(op)
+            targets.append(t.group(1) if t and op == "BRA" else None)
+        loops = []
+        for i, t in enumerate(targets):
+            j = label_at.get(t) if t and t.startswith(".L") else (
+                addr_at.get(int(t, 16)) if t else None)
+            if j is not None and j <= i:
+                body = ops[j:i + 1]
+                adds = sum(o in ("FADD", "DADD") for o in body)
+                loops.append((adds, -len(body), body))
+        if not loops:
+            continue
+        adds, _, body = max(loops)
+        out[name] = {"instructions": len(body), "fp_adds": adds,
+                     "per_pair": len(body) / (adds / 5) if adds else None,
+                     "opcodes": dict(collections.Counter(body).most_common())}
+    names = list(out)
+    try:
+        dem = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        dem = names
+    if len(dem) != len(names):
+        dem = names
+    return {re.sub(r"\(.*", "", d.replace("(anonymous namespace)::", "")).replace("void ", ""):
+            out[n] for n, d in zip(names, dem)}
+
+
 def phase_build():
     from simpleicp_tpu_torch import _build
 
     t0 = time.perf_counter()
     paths = _build.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = []
-    for name in paths:
-        for ln in _build.BUILD_LOGS.get(name, "").splitlines():
-            if any(w in ln for w in ("registers", "Compiling entry", "spill", "smem")):
-                ptxas.append(ln.strip())
+    ptxas = {name: ptxas_table(_build.BUILD_LOGS.get(name, "")) for name in paths}
+    # every nearest-neighbour kernel keeps its lists and queries in
+    # registers: no stack frame, no spills
+    bad = {f: v for f, v in ptxas.get("knn", {}).items()
+           if v.get("stack", 0) or v.get("spill_stores", 0) or v.get("spill_loads", 0)}
+    check(bool(ptxas.get("knn")), "no -Xptxas -v lines for knn.cu")
+    check(not bad, f"knn.cu kernels with a stack frame or spills: {bad}")
     emit({"phase": "build", "seconds": seconds, "sources": sorted(paths),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sass_hot_loops": sass_hot_loops(paths["knn"])})
 
 
 class Compare:
@@ -391,7 +493,7 @@ def phase_kernels(torch, cmp):
         run("match_transform", f"{tag} main 1000x{N_MAIN}",
             lambda: knn.match_transform(Q, Xm, H),
             lambda: knn.match_transform_plain(Q, Xm, H))
-        for k in (10, 40):
+        for k in (10, 32, 33, 40, 64):
             run("knn_search", f"{tag} main 1000x{N_MAIN} k={k}",
                 lambda: knn.knn_search(Q, Xf, k),
                 lambda: knn.knn_search_plain(Q, Xf, k))
@@ -617,7 +719,8 @@ def phase_main(torch):
 def phase_scale(torch, cmp):
     """icp_register at 1.34M; then the match and k-NN kernels against their
     plain versions on that run's inputs: its C selected fixed points against
-    the whole movable cloud under its final H, and against the fixed cloud."""
+    the whole movable cloud under its final H, and against the fixed cloud.
+    Returns the clouds and the selection."""
     from simpleicp_tpu_torch import IcpConfig
     from simpleicp_tpu_torch.ops import knn
 
@@ -643,7 +746,7 @@ def phase_scale(torch, cmp):
           "n_iterations": int(res.n_iterations), "translation_err": err,
           "launches": launches, "host_reads": reads, "first_run_s": seconds,
           "max_memory_allocated": peak, "kernel_vs_plain": cmp.since(n0)})
-    return X_fix, X_mov
+    return X_fix, X_mov, res.sel_idx.cpu().numpy()
 
 
 def check_overlap(res, X_fix, x_overlap, what):
@@ -945,6 +1048,32 @@ def cuda_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(torch, fn, reps, calls=20):
+    """Mean device ms per call of a short kernel: ``calls`` calls captured in
+    one CUDA graph, replayed ``reps`` times between two CUDA events after a
+    warm-up replay. The wrappers' host work (checks, allocations, the
+    ctypes call) runs once at capture, so a kernel shorter than that host
+    work is timed on the device, not on the host: in a plain loop of calls
+    (``cuda_ms``) the host, not the card, sets the pace."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (reps * calls)
+
+
 def bound_ms(kernel, n_q, n_r, dtype_bytes, k=1):
     """Least time (ms) an H100 SXM could take for one call: the larger of
     the bytes it must move (each input read once, each output written once)
@@ -993,10 +1122,78 @@ def nn_times(torch, Q, R, dtype_bytes, reps, plain_reps=0):
     return out
 
 
+def knn_plans(torch, Q, R, k, reps):
+    """The k-NN under the wrapper's plan and under other chunk counts
+    (ms per call), to see the plan's cost model against the card."""
+    from simpleicp_tpu_torch.ops import knn, knn_cuda
+
+    resident = knn_cuda._resident(Q.device, Q.dtype, "knn32" if k <= 32 else "knn64")
+    wave = knn_cuda._knn_waves(Q.device, Q.dtype, k)
+    n_r = R.shape[0]
+    chosen = knn_cuda._plan_knn_chunks(Q.shape[0], n_r, k, wave)
+    out = {"resident_blocks": resident, "wave_blocks": wave, "plan": list(chosen),
+           "ms_by_chunks": {}}
+    saved = knn_cuda._plan_knn_chunks
+    try:
+        for c in sorted({1, 4, 8, 16, 24, 33, 48, 66, 132, 264, 528, chosen[1]}):
+            plan = (-(-n_r // c), -(-n_r // -(-n_r // c)))
+            knn_cuda._plan_knn_chunks = lambda *a, plan=plan: plan
+            out["ms_by_chunks"][c] = graph_ms(torch, lambda: knn.knn_search(Q, R, k), reps)
+    finally:
+        knn_cuda._plan_knn_chunks = saved
+    return out
+
+
+def knn_match_shapes(torch, scale, X_fix, sel):
+    """The match and the k-NN at the scale cell's own selection against its
+    1.34M clouds, the k-NN at 100k x 100k (every point a query, as
+    PointCloud.estimate_normals calls it; held bit-equal to the plain
+    version there), and the k-NN's chunk-count sweep at 1000 x 100k."""
+    import numpy as np
+
+    from simpleicp_tpu_torch.ops import knn
+
+    dev = torch.device("cuda")
+    out = {}
+    if scale is not None:
+        Xf = torch.as_tensor(scale[0], dtype=torch.float32, device=dev)
+        Xm = torch.as_tensor(scale[1], dtype=torch.float32, device=dev)
+        Q = Xf[torch.as_tensor(scale[2], device=dev).long()].contiguous()
+        H = random_rigid(torch, np.random.default_rng(SEED), torch.float32, dev)
+        nq, nr = Q.shape[0], Xm.shape[0]
+        rows = {}
+        for name, fn, plain, reps in (
+                ("match_transform", lambda: knn.match_transform(Q, Xm, H),
+                 lambda: knn.match_transform_plain(Q, Xm, H), 20),
+                ("knn_search", lambda: knn.knn_search(Q, Xf, 10),
+                 lambda: knn.knn_search_plain(Q, Xf, 10), 10)):
+            b, by = bound_ms(name, nq, nr, 4, k=10)
+            rows[name] = {"shape": [nq, nr], "ms": graph_ms(torch, fn, reps),
+                          "plain_ms": cuda_ms(torch, plain, 1), "bound_ms": b,
+                          "bound_by": by, "unfused_floor_ms": nn_floor_ms(nq, nr, 4),
+                          "library_ms": None}
+        out["scale_1.34M"] = rows
+        del Xf, Xm, Q
+    Xf = torch.as_tensor(X_fix, dtype=torch.float32, device=dev)
+    d_k, i_k = knn.knn_search(Xf, Xf, 10)
+    d_p, i_p = knn.knn_search_plain(Xf, Xf, 10)
+    check(torch.equal(d_k, d_p) and torch.equal(i_k, i_p),
+          f"k-NN at {N_MAIN} x {N_MAIN}: differs from the plain version")
+    b, by = bound_ms("knn_search", N_MAIN, N_MAIN, 4, k=10)
+    out["knn_normals_100k"] = {"shape": [N_MAIN, N_MAIN], "bit_equal_to_plain": True,
+                               "ms": cuda_ms(torch, lambda: knn.knn_search(Xf, Xf, 10), 5),
+                               "bound_ms": b, "bound_by": by,
+                               "unfused_floor_ms": nn_floor_ms(N_MAIN, N_MAIN, 4),
+                               "library_ms": None}
+    Q = Xf[torch.as_tensor(sel, device=dev)].contiguous()
+    out["knn_plans_1000x100k"] = knn_plans(torch, Q, Xf, 10, 20)
+    return out
+
+
 def uniform_nn_plan(n_q, n_r, resident):
-    """The chunk plan of the match and k-NN kernels (``_plan_chunks``: about
-    two waves of blocks, no chunk under the minimum) at the 1-NN's queries
-    per block: the baseline of the wrapper's whole-wave plan."""
+    """The uniform chunk plan that the match and k-NN kernels used before
+    their redesign (about two waves of blocks, no chunk under the minimum)
+    at the 1-NN's queries per block: the baseline of the whole-wave plan."""
     from simpleicp_tpu_torch.ops import knn_cuda
 
     q_blocks = -(-n_q // knn_cuda._NN_BLOCK)
@@ -1012,7 +1209,7 @@ def nn_plans(torch, Q, R, reps):
     last wave's blocks in use, and its ms per call."""
     from simpleicp_tpu_torch.ops import knn, knn_cuda
 
-    resident = knn_cuda._nn_resident(Q.device, Q.dtype, False)
+    resident = knn_cuda._resident(Q.device, Q.dtype, "nn_d2")
     n_q, n_r = Q.shape[0], R.shape[0]
     q_blocks = -(-n_q // knn_cuda._NN_BLOCK)
     plans = {"waves": knn_cuda._plan_nn_chunks(n_q, n_r, resident),
@@ -1044,7 +1241,7 @@ def nn_block_cost(torch, reps):
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 40)
     dev = torch.device("cuda")
-    resident = knn_cuda._nn_resident(dev, torch.float32, False)
+    resident = knn_cuda._resident(dev, torch.float32, "nn_d2")
     n_r = 262_144
     Q = torch.rand((resident * knn_cuda._NN_BLOCK, 3), generator=g, device=dev)
     R = torch.rand((n_r, 3), generator=g, device=dev)
@@ -1143,7 +1340,7 @@ def slab_rates(torch):
     return {"call_s": call_s, "host_sort_s_per_element": sort_s}
 
 
-def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
+def phase_times(torch, scale, gated_big, cells, dil=None):
     import numpy as np
 
     from simpleicp_tpu_torch.ops import knn
@@ -1152,6 +1349,12 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
     dev = torch.device("cuda")
     X_fix, X_mov, _ = cloud_pair(N_MAIN, SEED + 1)
     sel = np.round(np.linspace(0, N_MAIN - 1, 1000)).astype(np.int64)
+    # about 0.3 s of the 1-NN first, so that no timing below starts on a
+    # card whose clocks idled through the phases before (the CLI's
+    # subprocess, the host-bound checks)
+    Xw = torch.as_tensor(X_fix, dtype=torch.float32, device=dev)
+    cuda_ms(torch, lambda: knn.min_dist_sq(Xw, Xw), 100)
+    del Xw
     kernels = {}
     for dtype in (torch.float32, torch.float64):
         tag = str(dtype).replace("torch.", "")
@@ -1163,15 +1366,23 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
         row = {}
         b, by = bound_ms("match_transform", 1000, N_MAIN, size)
         row["match_transform"] = {
-            "ms": cuda_ms(torch, lambda: knn.match_transform(Q, Xm, H), 50),
+            "ms": graph_ms(torch, lambda: knn.match_transform(Q, Xm, H), 10),
+            "host_loop_ms": cuda_ms(torch, lambda: knn.match_transform(Q, Xm, H), 50),
             "plain_ms": cuda_ms(torch, lambda: knn.match_transform_plain(Q, Xm, H), 5),
             "bound_ms": b, "bound_by": by, "library_ms": None,
+            "unfused_floor_ms": nn_floor_ms(1000, N_MAIN, size),
         }
         b, by = bound_ms("knn_search", 1000, N_MAIN, size, k=10)
         row["knn_search"] = {
-            "ms": cuda_ms(torch, lambda: knn.knn_search(Q, Xf, 10), 20),
+            "ms": graph_ms(torch, lambda: knn.knn_search(Q, Xf, 10), 5),
+            "host_loop_ms": cuda_ms(torch, lambda: knn.knn_search(Q, Xf, 10), 20),
             "plain_ms": cuda_ms(torch, lambda: knn.knn_search_plain(Q, Xf, 10), 3),
             "bound_ms": b, "bound_by": by, "library_ms": None,
+            "unfused_floor_ms": nn_floor_ms(1000, N_MAIN, size),
+            # each list size the kernel is compiled for (32: one slot a
+            # lane, 64: two)
+            "by_k": {k: graph_ms(torch, lambda: knn.knn_search(Q, Xf, k), 5)
+                     for k in (32, 64)},
         }
         # the gate: every fixed point against the movable cloud
         row["nn_search"] = nn_times(torch, Xf, Xm, size, 10, plain_reps=2)
@@ -1187,9 +1398,13 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
         row["nn_search"]["index_decreasing_order_ms"] = cuda_ms(
             torch, lambda: knn.nn_search(Xf, Xw), 10)
         kernels[tag] = row
-    emit({"phase": "times", "what": f"kernels at 1000 x {N_MAIN} (k=10), the gate "
-          f"at {N_MAIN} x {N_MAIN} (the 1-NN: ms is the d2-only mode, index_ms the index "
-          "mode); warm L2", "kernels": kernels})
+    emit({"phase": "times", "what": f"kernels at 1000 x {N_MAIN} (k=10; by_k: k=32, 64), "
+          f"the gate at {N_MAIN} x {N_MAIN} (the 1-NN: ms is the d2-only mode, index_ms the "
+          "index mode); warm L2", "kernels": kernels})
+    emit({"phase": "times", "what": "the k-NN and the match at more shapes (float32, k=10, "
+          "warm L2): the scale cell's own selection, estimate_normals' all-points shape, "
+          "the k-NN under other chunk counts",
+          **knn_match_shapes(torch, scale, X_fix, sel)})
 
     nn_rate = None
     if gated_big is not None:
@@ -1247,8 +1462,8 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
 
     reg = {}
     clouds = {"100k": (X_fix, X_mov, None, 5)}
-    if scale_clouds is not None:
-        clouds["1.34M"] = (*scale_clouds, None, 3)
+    if scale is not None:
+        clouds["1.34M"] = (*scale[:2], None, 3)
     if "gated" in cells:
         G = partial_pair(N_MAIN, SEED + 3)
         clouds["gated 100k"] = (G[0], G[1], GATE_RADIUS, 5)
@@ -1284,7 +1499,7 @@ def phase_times(torch, scale_clouds, gated_big, cells, dil=None):
 
 # Device-kernel names of each port kernel's two passes (no name is a
 # substring of another).
-KERNEL_NAMES = {"match_transform_scan": "match_transform", "nn_reduce": "match_transform",
+KERNEL_NAMES = {"match_scan": "match_transform", "match_finish": "match_transform",
                 "knn_scan": "knn_search", "knn_merge": "knn_search",
                 "nn1_scan": "nn_search", "nn1_min_reduce": "nn_search",
                 "nn1_arg_finish": "nn_search", "dilate_kernel": "dilate"}
@@ -1379,14 +1594,15 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         phase_kernels(torch, cmp)
     main_info = phase_main(torch) if "main" in phases else None
-    scale_clouds = phase_scale(torch, cmp) if "scale" in phases else None
+    scale = phase_scale(torch, cmp) if "scale" in phases else None
+    scale_clouds = None if scale is None else scale[:2]
     gated_launches, gated_big = (phase_gated(torch, cmp) if "gated" in phases
                                  else (None, None))
     dil = phase_dilate(torch, cmp) if "dilate" in phases else None
     errs = cmp.err if "kernels" in phases else None
     if "cli" in phases:
         phase_cli(torch)
-    times = (phase_times(torch, scale_clouds, gated_big, phases, dil)
+    times = (phase_times(torch, scale, gated_big, phases, dil)
              if "times" in phases else None)
     if "profile" in phases:
         phase_profile(torch, scale_clouds, gated_big, phases, dil)

@@ -6,10 +6,16 @@ current stream and raises if ``cudaGetLastError`` reports a failure. It
 never synchronizes and never falls back to a plain version. Each launch
 adds one to its entry in ``LAUNCHES``; nothing else touches the counts but
 ``reset_launch_counts``. The 1-NN kernel has two entries, one per mode:
-``nn_search`` (index mode) and ``nn_search_d2`` (d2-only mode). A launch's
-grid holds at most ``_MAX_QUERIES`` queries for the match and k-NN
-kernels, which raise above it, and ``_NN_MAX_QUERIES`` for the 1-NN, whose
-wrappers launch once per slice of that many.
+``nn_search`` (index mode) and ``nn_search_d2`` (d2-only mode); the match
+is the index mode's scan with the transform fused in, under its own entry.
+The 1-NN and match wrappers launch once per slice of ``_NN_MAX_QUERIES``
+queries (a launch's grid rows of query blocks); the k-NN puts its query
+blocks on the grid's first axis and takes any count in one launch.
+
+Each kernel's reference axis is cut into chunks by a plan that fills the
+card's resident blocks (the occupancy API's blocks per SM times the SM
+count, ``_resident``) in whole waves: ``_plan_nn_chunks`` for the 1-NN and
+the match, ``_plan_knn_chunks`` for the k-NN.
 
 The library is built by ``_build.build`` at the first call, not at
 import, so importing this module needs neither nvcc nor a card.
@@ -19,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from typing import Optional, Tuple
 
@@ -30,15 +37,10 @@ from .. import _build
 LAUNCHES = {"match_transform": 0, "knn_search": 0, "nn_search": 0, "nn_search_d2": 0}
 
 MAX_K = 64          # csrc/knn.cu kMaxK
-_THREADS = 256      # csrc/knn.cu kThreads: queries per block
-_SM_COUNT_H100 = 132
-# Blocks the first pass aims for: two waves of 8 resident 256-thread blocks
-# on each of the H100's SMs.
-_TARGET_BLOCKS = 2 * 8 * _SM_COUNT_H100
-_MIN_CHUNK = 32     # fewest references a block scans
-_MAX_QUERIES = 65535 * _THREADS  # queries per launch (grid rows of blocks)
+_THREADS = 256      # csrc/knn.cu kThreads: threads per block
 
-# The 1-NN (csrc/knn.cu kNnQ, kNnSub): a block holds _NN_BLOCK queries.
+# The 1-NN and the match (csrc/knn.cu kNnQ, kNnSub): a block holds _NN_BLOCK
+# queries.
 _NN_BLOCK = 4 * _THREADS
 _NN_SUB = 32
 _NN_MAX_QUERIES = 65535 * _NN_BLOCK  # queries per 1-NN launch
@@ -51,6 +53,27 @@ _NN_MIN_CHUNK = 256    # fewest references a 1-NN block scans
 # 1.0-3.4 % less work on the busiest SM.
 _NN_WAVE_COST = 512
 _NN_MAX_CHUNKS = 1024  # the most chunks a plan considers
+
+# The k-NN (csrc/knn.cu kKnnBlock): 4 queries a warp, 32 a block; lists of
+# up to 32 pairs (one slot a lane) or 64 (two). Against 8 queries a warp
+# (chip_smoke.py knn_plans; H100 80GB HBM3, 700 W) 4 was 6 % faster at
+# 1000 x 100k in float32 and 27 % in float64, 9 % slower at 100k x 100k:
+# half the lists per resident warp, so the plan's chunks are twice as long.
+_KNN_BLOCK = 32
+_KNN_MIN_CHUNK = 512   # fewest references a k-NN block scans (one tile)
+# One insertion into a warp's list, in references scanned: about 20 warp
+# instructions (the candidate's broadcast, compare, two shifts, selects and
+# the k-th's re-read) against 11 a query per step of 32 refs, so
+# 20 * 32 / 11 = 58 refs whatever the queries per warp.
+_KNN_INSERT_REFS = 58
+# Blocks per SM at which the k-NN's scan saturates the SM's issue: more
+# resident blocks only cut the chunks shorter (at 1000 x 100k, float32, one
+# wave: 16 chunks at 4 blocks per SM 0.119 ms, 20 chunks at 5 per SM
+# 0.128; chip_smoke.py knn_plans, H100 80GB HBM3, 700 W).
+_KNN_SM_BLOCKS = 4
+
+# Scan kernels of simpleicp_resident (csrc/knn.cu).
+_RESIDENT_KERNELS = {"nn_d2": 0, "nn": 1, "match": 2, "knn32": 3, "knn64": 4}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -71,7 +94,7 @@ def _library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_build.build("knn")))
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"simpleicp_match_transform_{suffix}")
-                # q, nq, refs, n, h, chunk_len, n_chunks, part_d, part_i,
+                # q, nq, refs, n, h, chunk_len, n_chunks, part_d, part_b,
                 # out_d, out_i, stream
                 fn.argtypes = [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
                 fn.restype = _I
@@ -90,9 +113,9 @@ def _library() -> ctypes.CDLL:
                 # part_i, out_d, out_i, stream
                 fn.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P]
                 fn.restype = _I
-            # f64, index, out
-            lib.simpleicp_nn_resident.argtypes = [_I, _I, ctypes.POINTER(_I)]
-            lib.simpleicp_nn_resident.restype = _I
+            # kernel, f64, out
+            lib.simpleicp_resident.argtypes = [_I, _I, ctypes.POINTER(_I)]
+            lib.simpleicp_resident.restype = _I
             _lib = lib
         return _lib
 
@@ -119,58 +142,88 @@ def _check(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _plan_chunks(n_q: int, n_r: int) -> Tuple[int, int]:
-    """(chunk_len, n_chunks) of the reference axis: enough blocks to fill
-    the card even when there are few queries, and no chunk under
-    _MIN_CHUNK references."""
-    q_blocks = -(-n_q // _THREADS)
-    want = max(1, min(-(-n_r // _MIN_CHUNK), -(-_TARGET_BLOCKS // q_blocks)))
-    chunk_len = -(-n_r // want)
-    return chunk_len, -(-n_r // chunk_len)
-
-
-@functools.lru_cache(maxsize=256)
-def _plan_nn_chunks(n_q: int, n_r: int, resident: int) -> Tuple[int, int]:
-    """(chunk_len, n_chunks) of the 1-NN's reference axis. Blocks of equal
-    work run in waves of ``resident`` (the card's SMs times the scan's
-    blocks per SM), and whole waves leave no SM with more blocks than
-    another: pick the split whose waves times (chunk + _NN_WAVE_COST) is
-    least, with no chunk under _NN_MIN_CHUNK references; ties go to fewer
-    chunks. Against the uniform plan of the other kernels (about two
-    waves; chip_smoke.py nn_plans, H100 80GB HBM3, 700 W) the d2-only scan
-    ran 2.1 % faster at 100k x 100k and 7.4 % at the dilate gate's band
-    sweep (71 551 x 1.2M), as the blocks on the busiest SM predict; at 1M x
-    1M both pick the same plan."""
-    q_blocks = -(-n_q // _NN_BLOCK)
+def _whole_waves(q_blocks: int, n_r: int, resident: int, min_chunk: int,
+                 max_chunks: int, block_cost) -> Tuple[int, int]:
+    """(chunk_len, n_chunks) of a reference axis of n_r refs. Blocks of
+    equal work run in waves of ``resident``, and whole waves leave no SM
+    with more blocks than another: pick the split whose waves times
+    ``block_cost(chunk_len)`` is least, with no chunk under ``min_chunk``
+    references and at most ``max_chunks`` chunks; ties go to fewer chunks."""
     best = None
-    for want in range(1, max(1, min(n_r // _NN_MIN_CHUNK, _NN_MAX_CHUNKS)) + 1):
+    for want in range(1, max(1, min(n_r // min_chunk, max_chunks)) + 1):
         chunk_len = -(-n_r // want)
         n_chunks = -(-n_r // chunk_len)
         waves = -(-q_blocks * n_chunks // resident)
-        scanned = -(-chunk_len // _NN_SUB) * _NN_SUB
-        cost = waves * (scanned + _NN_WAVE_COST)
+        cost = waves * block_cost(chunk_len)
         if best is None or cost < best[0]:
             best = (cost, chunk_len, n_chunks)
     return best[1], best[2]
 
 
+@functools.lru_cache(maxsize=256)
+def _plan_nn_chunks(n_q: int, n_r: int, resident: int) -> Tuple[int, int]:
+    """(chunk_len, n_chunks) of the 1-NN's and the match's reference axis,
+    in whole waves of ``resident`` blocks (the card's SMs times the scan's
+    blocks per SM); a block costs its chunk, in whole sub-tiles, plus
+    _NN_WAVE_COST. Against the uniform plan of about two waves
+    (chip_smoke.py nn_plans, H100 80GB HBM3, 700 W) the d2-only scan ran
+    2.1 % faster at 100k x 100k and 7.4 % at the dilate gate's band sweep
+    (71 551 x 1.2M), as the blocks on the busiest SM predict; at 1M x 1M
+    both pick the same plan. At the match's 1000 queries (one query block)
+    it spreads the reference axis over every resident block."""
+    return _whole_waves(-(-n_q // _NN_BLOCK), n_r, resident, _NN_MIN_CHUNK,
+                        _NN_MAX_CHUNKS,
+                        lambda c: -(-c // _NN_SUB) * _NN_SUB + _NN_WAVE_COST)
+
+
+# The k-NN's partials hold at most this many (query, chunk) lists.
+_KNN_MAX_LISTS = 1 << 22
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_knn_chunks(n_q: int, n_r: int, k: int, resident: int) -> Tuple[int, int]:
+    """(chunk_len, n_chunks) of the k-NN's reference axis, in whole waves
+    of ``resident`` blocks. A block costs its chunk plus the insertions of
+    lists that start empty: a list over c refs in random order takes about
+    k (1 + ln(c / k)) of them (c when c <= k), each worth _KNN_INSERT_REFS
+    refs, so the plan prefers few long chunks. At the main path's 1000
+    queries (16 query blocks) that is one wave of a few dozen chunks of
+    thousands of refs; at estimate_normals' 100k x 100k, one chunk."""
+    def block_cost(c):
+        return c + _KNN_INSERT_REFS * min(c, k) * (1.0 + math.log(max(c / k, 1.0)))
+
+    max_chunks = max(1, min(_NN_MAX_CHUNKS, _KNN_MAX_LISTS // max(n_q, 1)))
+    return _whole_waves(-(-n_q // _KNN_BLOCK), n_r, resident, _KNN_MIN_CHUNK,
+                        max_chunks, block_cost)
+
+
 _resident_cache = {}
 
 
-def _nn_resident(dev: torch.device, dtype: torch.dtype, index: bool) -> int:
-    """Resident 1-NN scan blocks on ``dev`` (the occupancy API's blocks per
-    SM times the SM count), once per device, dtype and mode."""
-    key = (dev.index, dtype, index)
+def _resident(dev: torch.device, dtype: torch.dtype, kernel: str) -> int:
+    """Resident blocks of one scan kernel (``_RESIDENT_KERNELS``) on
+    ``dev``: the occupancy API's blocks per SM times the SM count, once per
+    device, dtype and kernel."""
+    key = (dev.index, dtype, kernel)
     if key not in _resident_cache:
         out = _I(0)
         with torch.cuda.device(dev):
-            err = _library().simpleicp_nn_resident(int(dtype == torch.float64),
-                                                   int(index), ctypes.byref(out))
-        _raise_on(err, "nn_search occupancy")
+            err = _library().simpleicp_resident(_RESIDENT_KERNELS[kernel],
+                                                int(dtype == torch.float64),
+                                                ctypes.byref(out))
+        _raise_on(err, f"{kernel} occupancy")
         if out.value < 1:
-            raise RuntimeError("the 1-NN kernel fits no block on this device")
+            raise RuntimeError(f"the {kernel} kernel fits no block on this device")
         _resident_cache[key] = out.value
     return _resident_cache[key]
+
+
+def _knn_waves(dev: torch.device, dtype: torch.dtype, k: int) -> int:
+    """Blocks of the k-NN's scan a wave of its plan holds: the resident
+    blocks, at most _KNN_SM_BLOCKS a SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return min(_resident(dev, dtype, "knn32" if k <= 32 else "knn64"),
+               _KNN_SM_BLOCKS * sms)
 
 
 def _common(queries: torch.Tensor, refs: torch.Tensor):
@@ -188,11 +241,6 @@ def _common(queries: torch.Tensor, refs: torch.Tensor):
     return dev, dtype, suffix, n_q, n_r
 
 
-def _one_launch(n_q: int) -> None:
-    if n_q > _MAX_QUERIES:
-        raise ValueError(f"at most {_MAX_QUERIES} queries per launch")
-
-
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -201,28 +249,13 @@ def _raise_on(err: int, what: str) -> None:
 def match_transform_cuda(queries: torch.Tensor, refs: torch.Tensor,
                          H: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel of ``knn.match_transform``: 1-NN of each query among the refs
-    moved by H's [R | t], read by the kernel from device memory."""
-    dev, dtype, suffix, n_q, n_r = _common(queries, refs)
-    _one_launch(n_q)
+    moved by H's [R | t], read by the kernel from device memory (the 1-NN's
+    index mode with the transform fused into its staging)."""
+    dev, dtype, _, _, _ = _common(queries, refs)
     if H.shape == (4, 4):
         H = H[:3]
     _check("H", H, dev, dtype, (3, 4))
-    out_d = torch.empty((n_q,), dtype=dtype, device=dev)
-    out_i = torch.empty((n_q,), dtype=torch.int32, device=dev)
-    if n_q == 0:
-        return out_d, out_i
-    chunk_len, n_chunks = _plan_chunks(n_q, n_r)
-    part_d = torch.empty((n_chunks, n_q), dtype=dtype, device=dev)
-    part_i = torch.empty((n_chunks, n_q), dtype=torch.int32, device=dev)
-    fn = getattr(_library(), f"simpleicp_match_transform_{suffix}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(queries.data_ptr(), n_q, refs.data_ptr(), n_r, H.data_ptr(),
-                 chunk_len, n_chunks, part_d.data_ptr(), part_i.data_ptr(),
-                 out_d.data_ptr(), out_i.data_ptr(), stream)
-    _raise_on(err, "match_transform")
-    LAUNCHES["match_transform"] += 1
-    return out_d, out_i
+    return _nn(queries, refs, None, index=True, H=H)
 
 
 def knn_search_cuda(queries: torch.Tensor, refs: torch.Tensor, k: int,
@@ -231,7 +264,6 @@ def knn_search_cuda(queries: torch.Tensor, refs: torch.Tensor, k: int,
     """Kernel of ``knn.knn_search``: the k smallest (d2, index) pairs per
     query in lexicographic order; masked refs count as d2 = +inf."""
     dev, dtype, suffix, n_q, n_r = _common(queries, refs)
-    _one_launch(n_q)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"the k-NN kernel takes 1 <= k <= {MAX_K}, got {k}")
     if k > n_r:
@@ -242,15 +274,18 @@ def knn_search_cuda(queries: torch.Tensor, refs: torch.Tensor, k: int,
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
     if n_q == 0:
         return out_d, out_i
-    chunk_len, n_chunks = _plan_chunks(n_q, n_r)
-    part_d = torch.empty((n_chunks, k, n_q), dtype=dtype, device=dev)
-    part_i = torch.empty((n_chunks, k, n_q), dtype=torch.int32, device=dev)
+    chunk_len, n_chunks = _plan_knn_chunks(n_q, n_r, k, _knn_waves(dev, dtype, k))
+    part_d = part_i = None
+    if n_chunks > 1:
+        part_d = torch.empty((n_q, n_chunks, k), dtype=dtype, device=dev)
+        part_i = torch.empty((n_q, n_chunks, k), dtype=torch.int32, device=dev)
     fn = getattr(_library(), f"simpleicp_knn_{suffix}")
     mask_ptr = None if ref_mask is None else ref_mask.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(queries.data_ptr(), n_q, refs.data_ptr(), n_r, mask_ptr, k,
-                 chunk_len, n_chunks, part_d.data_ptr(), part_i.data_ptr(),
+                 chunk_len, n_chunks, None if part_d is None else part_d.data_ptr(),
+                 None if part_i is None else part_i.data_ptr(),
                  out_d.data_ptr(), out_i.data_ptr(), stream)
     _raise_on(err, "knn_search")
     LAUNCHES["knn_search"] += 1
@@ -258,9 +293,11 @@ def knn_search_cuda(queries: torch.Tensor, refs: torch.Tensor, k: int,
 
 
 def _nn(queries: torch.Tensor, refs: torch.Tensor,
-        ref_mask: Optional[torch.Tensor], index: bool):
-    """Both 1-NN modes: one launch per slice of _NN_MAX_QUERIES queries (no
-    query's result depends on another's). Returns (d2, idx or None)."""
+        ref_mask: Optional[torch.Tensor], index: bool,
+        H: Optional[torch.Tensor] = None):
+    """Both 1-NN modes, and the match (the index mode with H): one launch
+    per slice of _NN_MAX_QUERIES queries (no query's result depends on
+    another's). Returns (d2, idx or None)."""
     dev, dtype, suffix, n_q, n_r = _common(queries, refs)
     if ref_mask is not None:
         _check("ref_mask", ref_mask, dev, torch.bool, (n_r,))
@@ -268,10 +305,17 @@ def _nn(queries: torch.Tensor, refs: torch.Tensor,
     out_i = torch.empty((n_q,), dtype=torch.int32, device=dev) if index else None
     if n_q == 0:
         return out_d, out_i
-    name = "nn_search" if index else "nn_search_d2"
-    fn = getattr(_library(), f"simpleicp_nn_{suffix}" if index else f"simpleicp_nn_d2_{suffix}")
-    resident = _nn_resident(dev, dtype, index)
-    mask_ptr = None if ref_mask is None else ref_mask.data_ptr()
+    if H is not None:
+        name, kernel, fn_name = "match_transform", "match", "simpleicp_match_transform"
+    elif index:
+        name, kernel, fn_name = "nn_search", "nn", "simpleicp_nn"
+    else:
+        name, kernel, fn_name = "nn_search_d2", "nn_d2", "simpleicp_nn_d2"
+    fn = getattr(_library(), f"{fn_name}_{suffix}")
+    resident = _resident(dev, dtype, kernel)
+    # the match's fifth argument is H where the 1-NN's is the mask
+    fifth = H.data_ptr() if H is not None else (
+        None if ref_mask is None else ref_mask.data_ptr())
     for s in range(0, n_q, _NN_MAX_QUERIES):
         n = min(_NN_MAX_QUERIES, n_q - s)
         chunk_len, n_chunks = _plan_nn_chunks(n, n_r, resident)
@@ -279,7 +323,7 @@ def _nn(queries: torch.Tensor, refs: torch.Tensor,
                   if index or n_chunks > 1 else None)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            head = (queries[s:].data_ptr(), n, refs.data_ptr(), n_r, mask_ptr,
+            head = (queries[s:].data_ptr(), n, refs.data_ptr(), n_r, fifth,
                     chunk_len, n_chunks, None if part_d is None else part_d.data_ptr())
             if index:
                 part_b = torch.empty((n_chunks, n), dtype=torch.int32, device=dev)

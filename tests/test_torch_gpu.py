@@ -92,6 +92,79 @@ def test_knn_kernel_mask_and_ties(cuda, dtype):
            knn.knn_search_plain(Q, R, 5, ref_mask=few))
 
 
+# k on each side of the k-NN's list sizes (32 pairs: one slot a lane; 64:
+# two), at the main path's shape and at a normals-like all-points shape
+BUCKET_KS = [1, 10, 31, 32, 33, 40, 64]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nq,nr", [(1000, 100_000), (20_000, 20_000)])
+@pytest.mark.parametrize("k", BUCKET_KS)
+def test_knn_kernel_buckets(cuda, dtype, nq, nr, k):
+    from simpleicp_tpu_torch.ops import knn, knn_cuda
+
+    rng = np.random.default_rng(nq + k)
+    q = torch.as_tensor(rng.uniform(-5, 5, (nq, 3)), dtype=dtype, device=cuda)
+    r = torch.as_tensor(rng.uniform(-5, 5, (nr, 3)), dtype=dtype, device=cuda)
+    before = dict(knn_cuda.LAUNCHES)
+    out = knn.knn_search(q, r, k)
+    assert knn_cuda.LAUNCHES == {**before, "knn_search": before["knn_search"] + 1}
+    _equal(out, knn.knn_search_plain(q, r, k))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [5, 26, 33, 64])
+def test_knn_kernel_masks_ties_and_plans(cuda, dtype, k, monkeypatch):
+    """Masks (random, and fewer valid refs than k), the tie lattice
+    repeated so that ties fall in different chunks, under the wrapper's
+    plan and under forced plans of ragged chunks (one launch each)."""
+    from simpleicp_tpu_torch.ops import knn, knn_cuda
+
+    rng = np.random.default_rng(31 + k)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=cuda)
+    g = np.arange(10.0)
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    Q = T(lat[rng.choice(len(lat), 300, replace=False)] + 0.5 * rng.integers(0, 2, (300, 3)))
+    R = T(np.concatenate([lat] * 5))
+    mask = torch.as_tensor(rng.random(len(R)) < 0.3, device=cuda)
+    few = torch.zeros(len(R), dtype=torch.bool, device=cuda)
+    few[torch.as_tensor(rng.choice(len(R), k - 2 if k > 2 else 0, replace=False),
+                        dtype=torch.long, device=cuda)] = True
+    plans = [None, (1000, 5), (333, 16), (5000, 1)]
+    for plan in plans:
+        if plan is not None:
+            monkeypatch.setattr(knn_cuda, "_plan_knn_chunks", lambda *a, p=plan: p)
+        for m in (None, mask, few):
+            before = knn_cuda.LAUNCHES["knn_search"]
+            out = knn.knn_search(Q, R, k, ref_mask=m)
+            assert knn_cuda.LAUNCHES["knn_search"] == before + 1
+            _equal(out, knn.knn_search_plain(Q, R, k, ref_mask=m))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_match_kernel_rigid_and_ties(cuda, dtype):
+    """The match at 1000 x 200 000 under a random rigid H, and on the tie
+    lattice (repeated, so that ties fall in different chunks) under the
+    identity: one launch each."""
+    from simpleicp_tpu_torch.ops import knn, knn_cuda
+
+    rng = np.random.default_rng(37)
+    q = torch.as_tensor(rng.uniform(-5, 5, (1000, 3)), dtype=dtype, device=cuda)
+    x = torch.as_tensor(rng.uniform(-5, 5, (200_000, 3)), dtype=dtype, device=cuda)
+    g = np.arange(10.0)
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    lq = torch.as_tensor(lat[rng.choice(len(lat), 1000)] + 0.5 * rng.integers(0, 2, (1000, 3)),
+                         dtype=dtype, device=cuda)
+    lr = torch.as_tensor(np.concatenate([lat] * 50), dtype=dtype, device=cuda)
+    eye = torch.eye(4, dtype=dtype, device=cuda)
+    for Q, X, H in ((q, x, _rigid(rng, dtype, cuda)), (lq, lr, eye)):
+        before = dict(knn_cuda.LAUNCHES)
+        out = knn.match_transform(Q, X, H)
+        assert knn_cuda.LAUNCHES == {**before,
+                                     "match_transform": before["match_transform"] + 1}
+        _equal(out, knn.match_transform_plain(Q, X, H))
+
+
 NN_SHAPES = SHAPES + [(4099, 3001), (100_000, 100_000)]
 
 
