@@ -43,6 +43,17 @@ Phases, each printing one JSON object on a line of its own:
            and the blocked slab join run, masks equal to brute;
   cli      python3 -m simpleicp_tpu_torch on a gated 100 000-point xyz pair,
            as a subprocess on the card: its lines and its exported cloud;
+  serve    the serving path, float32 on the card: prepare_fixed once on a
+           1.34M fixed cloud and 4 movable clouds (each under its own rigid
+           motion from the seed) registered against it, prepared and
+           self-contained, bit-equal (every result field and the last
+           matches), at C=1000 and at C=100 000; the preparation through an
+           npz file and back; the coarse-to-fine warm start against a cold
+           start at C=100 000 on the 1.34M pair, and gated on the dilate
+           1.2M pair (a brute-gated coarse pass, a dilate-gated full pass);
+           wall times (medians of 3), the preparation's time, launches of
+           each kernel (a prepared registration launches no k-NN), all
+           launches (torch.profiler) and host reads;
   times    kernel times (CUDA events, warm L2; the match and the k-NN as
            CUDA-graph replays, so that the wrappers' host work does not set
            the pace) beside their bounds and the plain versions' times; the
@@ -80,7 +91,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "scale", "gated", "dilate",
-          "cli", "times", "profile")
+          "cli", "serve", "times", "profile")
 KERNELS = ("match_transform", "knn_search", "nn_search", "dilate")
 SOURCES = {
     "match_transform": "simpleicp_tpu_torch/csrc/knn.cu",
@@ -145,8 +156,13 @@ def surface(rng, n, half=2.0):
 def known_motion():
     import numpy as np
 
-    a = np.array([0.02, -0.015, 0.03])
-    t = np.array([0.05, -0.04, 0.03])
+    return rotation(np.array([0.02, -0.015, 0.03])), np.array([0.05, -0.04, 0.03])
+
+
+def rotation(a):
+    """The rotation of the three parameter angles a (rbp_to_H's order)."""
+    import numpy as np
+
     c1, s1, c2, s2, c3, s3 = (
         np.cos(a[0]), np.sin(a[0]), np.cos(a[1]), np.sin(a[1]),
         np.cos(a[2]), np.sin(a[2]),
@@ -158,7 +174,7 @@ def known_motion():
             [s1 * s3 - c1 * s2 * c3, s1 * c3 + c1 * s2 * s3, c1 * c2],
         ]
     )
-    return R, t
+    return R
 
 
 def cloud_pair(n, seed, area_scale=1.0):
@@ -641,23 +657,62 @@ def read_counts():
     return {**knn_cuda.LAUNCHES, **dilate_cuda.LAUNCHES}
 
 
-def counted_run(torch, X_fix, X_mov, dtype, gate=None, gate_launches=None):
-    """One registration on the card with every count set to 0 just before
-    and read just after: one k-NN launch, one match launch per iteration,
-    and the gate's launches (``gate_launches``; by default one 1-NN launch
-    in the d2-only mode when gated, none otherwise; never the index
-    mode)."""
+def timed(torch, fn):
+    """fn() with every count set to 0 just before and read just after:
+    (its result, seconds ending in a synchronize, launches, host reads)."""
     from simpleicp_tpu_torch.utils import sync
 
     torch.cuda.synchronize()
     reset_counts()
     sync.reset_host_reads()
     t0 = time.perf_counter()
-    res, carry = _register(torch, X_fix, X_mov, dtype, "cuda", gate)
+    out = fn()
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read_counts()
-    reads = sync.host_reads()
+    return out, time.perf_counter() - t0, read_counts(), sync.host_reads()
+
+
+def timed_runs(torch, fns, reps):
+    """Each fn of ``fns`` (label -> fn) ``reps`` times through ``timed``, in
+    turns. Returns per label the median wall time, each run's seconds and
+    host reads and the kernel launches of its last run; and per label the
+    results of its runs."""
+    rows = {label: {"runs_s": [], "host_reads": []} for label in fns}
+    results = {label: [] for label in fns}
+    for _ in range(reps):
+        for label, fn in fns.items():
+            out, seconds, launches, reads = timed(torch, fn)
+            results[label].append(out)
+            rows[label]["runs_s"].append(seconds)
+            rows[label]["host_reads"].append(reads)
+            rows[label]["launches"] = launches
+    for row in rows.values():
+        row["median_s"] = statistics.median(row["runs_s"])
+    return rows, results
+
+
+def traced(torch, fn):
+    """One fn() under torch.profiler: its result, the host wall ms ending
+    in a synchronize, and the device events (kernels, copies and fills)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, wall_ms, events
+
+
+def counted_run(torch, X_fix, X_mov, dtype, gate=None, gate_launches=None):
+    """One registration on the card with every count set to 0 just before
+    and read just after: one k-NN launch, one match launch per iteration,
+    and the gate's launches (``gate_launches``; by default one 1-NN launch
+    in the d2-only mode when gated, none otherwise; never the index
+    mode)."""
+    (res, carry), seconds, launches, reads = timed(
+        torch, lambda: _register(torch, X_fix, X_mov, dtype, "cuda", gate))
     n_it = int(res.n_iterations)
     if gate_launches is None:
         gate_launches = {"nn_search": 0, "nn_search_d2": 0 if gate is None else 1,
@@ -921,7 +976,7 @@ def phase_dilate(torch, cmp):
     Xf, Xm0 = gate_inputs(torch, X_fix, X_mov)
     plan = plan_of(Xm0)
     cfg = icp._resolve_engines(IcpConfig(max_overlap_distance=GATE_RADIUS),
-                               N_DILATE, N_DILATE, fixed_prep=None)
+                               N_DILATE, N_DILATE)
     plan_r = icp._resolve_gate(cfg, N_DILATE, N_DILATE,
                                lambda: dg.bbox_of(Xm0).cpu().numpy())
     check(plan_r is not None and plan_r == plan,
@@ -1030,6 +1085,226 @@ def phase_cli(torch):
           "exit_code": proc.returncode, "wall_s": seconds,
           "finished_line": finished[-1] if finished else None,
           "export_max_abs_err": err})
+
+
+# Serving: the 1.34M cell's fixed cloud as the map, and four movable scans
+# of its surface, each under its own rigid motion. Two correspondence
+# counts: the default, and the big-correspondence shape a preparation
+# saves the most for (its k-NN is C x nf: 100 000 x 1.34M).
+SERVE_MOVABLES = 4
+SERVE_CS = (1000, 100_000)
+
+
+def serve_clouds():
+    """The 1.34M fixed cloud and SERVE_MOVABLES independent samples of its
+    surface, each moved by a rigid motion drawn from the seed (angles up to
+    0.03 rad, shifts up to 0.06). Returns (X_fix, [(X_mov, t), ...])."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    half = 2.0 * math.sqrt(N_SCALE / N_MAIN)
+    X_fix = surface(rng, N_SCALE, half)
+    movs = []
+    for _ in range(SERVE_MOVABLES):
+        a, t = rng.uniform(-0.03, 0.03, 3), rng.uniform(-0.06, 0.06, 3)
+        movs.append(((surface(rng, N_SCALE, half) - t) @ rotation(a), t))
+    return X_fix, movs
+
+
+def compare_runs(torch, fns, reps=3):
+    """``timed_runs`` of ``fns``, and all device launches and busy ms of one
+    more run of each under torch.profiler."""
+    rows, _ = timed_runs(torch, fns, reps)
+    for label, fn in fns.items():
+        _, _, events = traced(torch, fn)
+        rows[label]["all_launches"] = len(events)
+        rows[label]["device_busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return rows
+
+
+def check_same_result(torch, a, b, what):
+    for f in a._fields:
+        check(torch.equal(getattr(a, f), getattr(b, f)), f"{what}: {f} differs")
+
+
+def check_serve_kernels(torch, cmp, prep, Xf, Xm, H, k, tag):
+    """The k-NN and the match kernels against their plain versions at the
+    preparation's own shapes: its C queries against the fixed cloud (k
+    neighbours) and against the movable cloud under H. The kernels run on
+    all C rows; a seeded sample of rows (the last block's rows among them)
+    is held against the plain version, indices equal and d2 bit-equal.
+    Each row's answer depends on no other row, so the plain version on a
+    subset of queries is the reference for those rows."""
+    import numpy as np
+
+    from simpleicp_tpu_torch.ops import knn
+
+    n0 = len(cmp.cases)
+    n_q = prep.Q.shape[0]
+    rows = np.random.default_rng(SEED + 12).choice(n_q - 1024, 3072, replace=False)
+    rows = torch.as_tensor(np.concatenate([rows, np.arange(n_q - 1024, n_q)]),
+                           device=prep.Q.device)
+    Qs = prep.Q[rows].contiguous()
+    shape = f"{n_q}x{Xf.shape[0]}, {rows.shape[0]} rows"
+    d_k, i_k = knn.knn_search(prep.Q, Xf, k)
+    torch.cuda.synchronize()
+    d_p, i_p = knn.knn_search_plain(Qs, Xf, k)
+    torch.cuda.synchronize()
+    cmp.record("knn_search", f"float32 {tag} {shape} k={k}", d_k[rows], i_k[rows], d_p, i_p)
+    d_k, i_k = knn.match_transform(prep.Q, Xm, H)
+    torch.cuda.synchronize()
+    d_p, i_p = knn.match_transform_plain(Qs, Xm, H)
+    torch.cuda.synchronize()
+    cmp.record("match_transform", f"float32 {tag} {shape}, final H",
+               d_k[rows], i_k[rows], d_p, i_p)
+    return cmp.since(n0)
+
+
+def phase_serve(torch, cmp):
+    """Serving on the card, float32: (1-2) prepare_fixed once on the 1.34M
+    fixed cloud and the movable clouds registered against it, prepared and
+    self-contained, at C=1000 and C=100 000, with a preparation through an
+    npz file, and at C=100 000 the k-NN and the match kernels held against
+    their plain versions at the preparation's shapes; (3) the warm start at
+    C=100 000 on the 1.34M pair; (4) the gated warm start on the dilate
+    1.2M pair. Returns each kernel's launches on the serving path."""
+    import dataclasses
+
+    from simpleicp_tpu_torch import IcpConfig, load_fixed_prep, prepare_fixed
+    from simpleicp_tpu_torch.models.icp import _icp_register
+
+    t_phase = time.perf_counter()
+    dev, f32 = torch.device("cuda"), torch.float32
+    X_fix, movs = serve_clouds()
+    Xf = torch.as_tensor(X_fix, dtype=f32, device=dev)
+    Xms = [torch.as_tensor(X, dtype=f32, device=dev) for X, _ in movs]
+    motions = [t for _, t in movs]
+    del movs
+
+    def register(A, B, cfg, prep=None):
+        return _icp_register(
+            A, B, cfg, rbp_observed_values=None, rbp_observation_weights=None,
+            normals_fix=None, planarity_fix=None, planarity_mov=None,
+            fixed_prep=prep, device=dev, dtype=f32)
+
+    none = {"match_transform": 0, "knn_search": 0, "nn_search": 0, "nn_search_d2": 0,
+            "dilate": 0}
+    out = {"phase": "serve", "n_fix": N_SCALE, "n_mov": N_SCALE,
+           "input": "float32 tensors already on the card"}
+    serve_launches = {}
+    for C in SERVE_CS:
+        cfg = IcpConfig(correspondences=C)
+        tag = f"C={C}"
+        prep, prep_s, prep_l, prep_reads = timed(
+            torch, lambda: prepare_fixed(Xf, cfg, device=dev, dtype=f32))
+        check(prep_l == {**none, "knn_search": 1},
+              f"{tag}: prepare_fixed launched {prep_l}, expected one k-NN")
+        pairs, first_own = [], None
+        for i, (Xm, t) in enumerate(zip(Xms, motions)):
+            (own, own_c), own_s, own_l, _ = timed(torch, lambda: register(Xf, Xm, cfg))
+            (served, served_c), served_s, served_l, served_reads = timed(
+                torch, lambda: register(Xf, Xm, cfg, prep))
+            what = f"{tag} movable {i}"
+            check_same_result(torch, served, own, f"{what}: prepared vs self-contained")
+            check(torch.equal(served_c.m_idx, own_c.m_idx),
+                  f"{what}: the last matches differ")
+            n_it = int(served.n_iterations)
+            check(served_l == {**none, "match_transform": n_it},
+                  f"{what}: the prepared run launched {served_l}")
+            check(own_l == {**none, "match_transform": n_it, "knn_search": 1},
+                  f"{what}: the self-contained run launched {own_l}")
+            pairs.append({"n_iterations": n_it,
+                          "translation_err": check_recovery(served, t, what),
+                          "bit_equal": True, "first_run_s": [own_s, served_s],
+                          "prepared_host_reads": served_reads})
+            if i == 0:
+                first_own, first_H = own, served.H.to(f32)
+                if C == SERVE_CS[0]:
+                    serve_launches.update(match_transform=served_l["match_transform"],
+                                          knn_search=prep_l["knn_search"])
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "prep.npz")
+            prep.save(path)
+            loaded = load_fixed_prep(path)
+        for f, a, b in zip(prep._fields, prep, loaded):
+            check(a == b if f in prep._fields[5:] else torch.equal(a, b),
+                  f"{tag}: {f} differs after save and load")
+        check_same_result(torch, register(Xf, Xms[0], cfg, loaded)[0], first_own,
+                          f"{tag}: from the loaded preparation vs self-contained")
+        kernel_vs_plain = (check_serve_kernels(torch, cmp, prep, Xf, Xms[0], first_H,
+                                               cfg.neighbors, tag)
+                           if C == SERVE_CS[-1] else [])
+        prep_runs = [prep_s] + [timed(torch, lambda: prepare_fixed(Xf, cfg))[1]
+                                for _ in range(2)]
+        out[tag] = {
+            "prepare_fixed": {"median_s": statistics.median(prep_runs), "runs_s": prep_runs,
+                              "launches": prep_l, "host_reads": prep_reads},
+            "registrations": pairs, "npz_round_trip_bit_equal": True,
+            "kernel_vs_plain": kernel_vs_plain,
+            "movable_0": compare_runs(torch, {
+                "self_contained": lambda: register(Xf, Xms[0], cfg),
+                "prepared": lambda: register(Xf, Xms[0], cfg, prep)}),
+        }
+        del prep, loaded, first_own, first_H
+
+    def warm_vs_cold(A, B, cfg, what, t, X_fix=None, x_overlap=None):
+        """The cold and the warm registration: both recover the motion, the
+        warm one adopts its coarse seed and lands within 2e-4 of the cold H;
+        the warm start's extra launches are a registration's worth."""
+        warm_cfg = dataclasses.replace(cfg, warm_start=True)
+        cold, _, cold_l, _ = timed(torch, lambda: register(A, B, cfg)[0])
+        warm, _, warm_l, _ = timed(torch, lambda: register(A, B, warm_cfg)[0])
+        row = {"n_iterations": {"cold": int(cold.n_iterations),
+                                "warm": int(warm.n_iterations)},
+               "translation_err": {"cold": check_recovery(cold, t, f"{what} cold"),
+                                   "warm": check_recovery(warm, t, f"{what} warm")}}
+        if X_fix is not None:
+            row["selected_x_min"] = {
+                "cold": check_overlap(cold, X_fix, x_overlap, f"{what} cold"),
+                "warm": check_overlap(warm, X_fix, x_overlap, f"{what} warm")}
+        dH = float((warm.H - cold.H).abs().max())
+        check(dH <= 2e-4, f"{what}: warm H is {dH} from cold H (> 2e-4)")
+        check(not torch.equal(warm.iter_ps[0], cold.iter_ps[0]),
+              f"{what}: the warm run's first iteration equals the cold one's "
+              "(coarse seed not adopted)")
+        check(warm_l["knn_search"] == cold_l["knn_search"] + 1
+              and warm_l["match_transform"] > int(warm.n_iterations),
+              f"{what}: warm launches {warm_l} against cold {cold_l}")
+        row["H_max_abs_diff"] = dH
+        row["times"] = compare_runs(torch, {"cold": lambda: register(A, B, cfg),
+                                            "warm": lambda: register(A, B, warm_cfg)})
+        return row, warm_l
+
+    def coarse_points(n, cfg):
+        stride = -(-n // cfg.warm_start_points)
+        return -(-n // stride)
+
+    cfg_big = IcpConfig(correspondences=SERVE_CS[1])
+    tag = f"warm_start_C={SERVE_CS[1]}"
+    out[tag], _ = warm_vs_cold(Xf, Xms[0], cfg_big, tag, motions[0])
+    out[tag]["coarse_pass"] = {
+        "points": coarse_points(N_SCALE, cfg_big),
+        "correspondences": min(SERVE_CS[1], cfg_big.warm_start_correspondences)}
+    del Xf, Xms
+
+    A, B, t, x0 = partial_pair(N_DILATE, SEED + 8, N_DILATE / N_MAIN)
+    Af = torch.as_tensor(A, dtype=f32, device=dev)
+    Bf = torch.as_tensor(B, dtype=f32, device=dev)
+    gcfg = IcpConfig(max_overlap_distance=GATE_RADIUS)
+    row, warm_l = warm_vs_cold(Af, Bf, gcfg, "gated warm start 1.2M", t, A, x0)
+    check(warm_l["dilate"] == 1 and warm_l["nn_search_d2"] >= 2,
+          f"gated warm start 1.2M: expected a brute-gated coarse pass and a "
+          f"dilate-gated full pass, launched {warm_l}")
+    row["coarse_pass"] = {"points": coarse_points(N_DILATE, gcfg), "gate": "brute"}
+    out["gated_warm_start_1.2M"] = row
+    serve_launches.update(nn_search=warm_l["nn_search"] + warm_l["nn_search_d2"],
+                          dilate=warm_l["dilate"])
+    for name in KERNELS:
+        check(serve_launches[name] > 0, f"serve: the {name} kernel was not launched")
+    out["kernel_launches_on_the_serving_path"] = serve_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return serve_launches
 
 
 def cuda_ms(torch, fn, reps):
@@ -1344,7 +1619,6 @@ def phase_times(torch, scale, gated_big, cells, dil=None):
     import numpy as np
 
     from simpleicp_tpu_torch.ops import knn
-    from simpleicp_tpu_torch.utils import sync
 
     dev = torch.device("cuda")
     X_fix, X_mov, _ = cloud_pair(N_MAIN, SEED + 1)
@@ -1474,20 +1748,14 @@ def phase_times(torch, scale, gated_big, cells, dil=None):
     for label, (A, B, gate, reps) in clouds.items():
         Af = torch.as_tensor(A, dtype=torch.float32, device=dev)
         Bf = torch.as_tensor(B, dtype=torch.float32, device=dev)
-        _register(torch, Af, Bf, torch.float32, "cuda", gate)  # warm-up
-        times, reads, iters = [], [], []
+        def run():
+            return _register(torch, Af, Bf, torch.float32, "cuda", gate)[0]
+
+        run()  # warm-up
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            sync.reset_host_reads()
-            t0 = time.perf_counter()
-            res, _ = _register(torch, Af, Bf, torch.float32, "cuda", gate)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            reads.append(sync.host_reads())
-            iters.append(int(res.n_iterations))
-        reg[label] = {"median_s": statistics.median(times), "runs_s": times,
-                      "n_iterations": iters, "host_reads": reads,
+        rows, results = timed_runs(torch, {label: run}, reps)
+        reg[label] = {**rows[label],
+                      "n_iterations": [int(r.n_iterations) for r in results[label]],
                       "max_memory_allocated": torch.cuda.max_memory_allocated(),
                       "gate_radius": gate,
                       "input": "float32 tensors already on the card"}
@@ -1510,8 +1778,6 @@ def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
     the device's busy time (sum of kernel durations; one stream, so they
     do not overlap) and idle share, the number of kernel launches, and the
     device time of the port's kernels against everything else."""
-    from torch.profiler import ProfilerActivity, profile
-
     from simpleicp_tpu_torch.utils import sync
 
     dev = torch.device("cuda")
@@ -1531,15 +1797,9 @@ def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
         Af = torch.as_tensor(A, dtype=torch.float32, device=dev)
         Bf = torch.as_tensor(B, dtype=torch.float32, device=dev)
         _register(torch, Af, Bf, torch.float32, "cuda", gate)  # warm-up
-        torch.cuda.synchronize()
         sync.reset_host_reads()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res, _ = _register(torch, Af, Bf, torch.float32, "cuda", gate)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        (res, _), wall_ms, kernels = traced(
+            torch, lambda: _register(torch, Af, Bf, torch.float32, "cuda", gate))
         by_name, port = {}, {name: 0.0 for name in KERNELS}
         for e in kernels:
             short = next((k for k in KERNEL_NAMES if k in e.name), e.name[:70])
@@ -1602,6 +1862,7 @@ def main(argv=None) -> int:
     errs = cmp.err if "kernels" in phases else None
     if "cli" in phases:
         phase_cli(torch)
+    serve = phase_serve(torch, cmp) if "serve" in phases else None
     times = (phase_times(torch, scale, gated_big, phases, dil)
              if "times" in phases else None)
     if "profile" in phases:
@@ -1611,7 +1872,10 @@ def main(argv=None) -> int:
         # Launches of each kernel in the run of its path: the ungated main
         # path for the match and k-NN kernels, the brute-gated path for the
         # 1-NN gate (both modes counted; the gate runs the d2-only one, whose
-        # time is "ms"), the dilate-gated 1.2M registration for the dilation.
+        # time is "ms"), the dilate-gated 1.2M registration for the dilation;
+        # and on the serving path (serve_launches): the preparation's k-NN,
+        # a prepared registration's matches, and the gated warm start's
+        # 1-NN and dilation.
         modes = {"d2_only": gated_launches["nn_search_d2"], "index": gated_launches["nn_search"]}
         launches = {**main_info[0], "nn_search": sum(modes.values()),
                     "dilate": dil["launches"]["dilate"]}
@@ -1624,7 +1888,8 @@ def main(argv=None) -> int:
              "replaces": REPLACES[name], "launches": launches[name],
              "max_abs_err": errs[name], **{k: times[name][k] for k in keys},
              **({**{k: times[name][k] for k in nn_keys}, "launches_by_mode": modes}
-                if name == "nn_search" else {})}
+                if name == "nn_search" else {}),
+             **({} if serve is None else {"serve_launches": serve[name]})}
             for name in KERNELS
         ]})
     check("jax" not in sys.modules, "JAX was imported during the run")

@@ -16,14 +16,22 @@ import logging
 logging.getLogger(__name__).addHandler(logging.NullHandler())
 
 from .config import IcpConfig  # noqa: E402
-from .convert import config_from_dict, result_to_numpy  # noqa: E402
+from .convert import (  # noqa: E402
+    config_from_dict,
+    fixed_prep_from_jax,
+    fixed_prep_to_numpy,
+    result_to_numpy,
+)
 from .corrpts import CorrPts, CorrPtsException  # noqa: E402
 from .models.icp import (  # noqa: E402
     ERR_NO_OVERLAP,
     ERR_OK,
     ERR_TOO_FEW_CORRESPONDENCES,
+    FixedPrep,
     IcpResult,
     icp_register,
+    load_fixed_prep,
+    prepare_fixed,
 )
 from .models.solver import Parameter, RigidBodyParameters  # noqa: E402
 from .api import PointCloud, PointCloudException, SimpleICP, SimpleICPException  # noqa: E402
@@ -34,6 +42,7 @@ __all__ = [
     "ERR_NO_OVERLAP",
     "ERR_OK",
     "ERR_TOO_FEW_CORRESPONDENCES",
+    "FixedPrep",
     "IcpConfig",
     "IcpResult",
     "Parameter",
@@ -44,6 +53,10 @@ __all__ = [
     "SimpleICPException",
     "__version__",
     "config_from_dict",
+    "fixed_prep_from_jax",
+    "fixed_prep_to_numpy",
     "icp_register",
+    "load_fixed_prep",
+    "prepare_fixed",
     "result_to_numpy",
 ]

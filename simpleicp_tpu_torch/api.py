@@ -304,11 +304,13 @@ class SimpleICP:
         Angles of ``rbp_observed_values`` are in degrees. ``center`` shifts
         both clouds by the fixed cloud's centroid before the run and maps
         the result back exactly, on the host in float64 (only when no
-        translation is observed). Settings that are not ported yet raise
-        NotImplementedError naming their ROADMAP item: ``mesh`` and
-        ``num_devices`` (sharded runs), ``dispatch="chunked"``,
-        ``warm_start``, ``approx_knn``, and the grid gate and matcher
-        engines.
+        translation is observed). ``warm_start`` runs a coarse
+        registration of subsampled clouds first and starts the full run
+        from its result (``IcpConfig.warm_start``); ``approx_knn`` runs the
+        exact k-NN, as the JAX package does off the TPU. Settings that are
+        not ported yet raise NotImplementedError naming their ROADMAP item:
+        ``mesh`` and ``num_devices`` (sharded runs), ``dispatch="chunked"``,
+        and the grid gate and matcher engines.
 
         Returns:
             (H, X_mov_transformed, rbp, distance_residuals)

@@ -9,8 +9,7 @@ max_overlap_distance disables the gate", the ``--preset`` table and the
 ``cpu``, with no ``auto`` routing and no health probe, so there is no
 ``--probe-timeout``; ``--dtype`` chooses float32 (the default) or float64.
 Flags whose values are not ported yet fail with their ROADMAP item:
-``--num-devices``, ``--dispatch chunked``, ``--warm-start``,
-``--approx-knn`` and the grid engines.
+``--num-devices``, ``--dispatch chunked`` and the grid engines.
 """
 
 from __future__ import annotations
@@ -104,7 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--approx-knn", action="store_true",
-        help="approximate normal k-NN (not ported yet)",
+        help="approximate normal k-NN of the JAX package's TPU serving "
+             "config; runs the exact k-NN here",
     )
     p.add_argument(
         "--gate-method", choices=("auto", "brute", "grid", "dilate"),
@@ -139,10 +139,22 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--warm-start", action="store_true",
-        help="coarse-to-fine warm start (not ported yet)",
+        help="coarse-to-fine: register stride-subsampled clouds first and "
+             "start the full-resolution run from the coarse result (fewer "
+             "expensive iterations, same basin; big-correspondence runs "
+             "benefit most; incompatible with finite-weight "
+             "--observation-weights)",
     )
-    p.add_argument("--warm-start-points", type=int, default=1_000_000)
-    p.add_argument("--warm-start-correspondences", type=int, default=1000)
+    p.add_argument(
+        "--warm-start-points", type=int, default=1_000_000,
+        help="target subsampled-cloud size of the coarse warm-start pass "
+             "(clouds at/below this size skip the coarse pass)",
+    )
+    p.add_argument(
+        "--warm-start-correspondences", type=int, default=1000,
+        help="correspondence count of the coarse warm-start pass (capped "
+             "at --correspondences)",
+    )
     p.add_argument(
         "--stall-policy", choices=["warn", "wait"], default="warn",
         help="TPU chunked-dispatch policy of the JAX package; no effect here",

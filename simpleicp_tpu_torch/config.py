@@ -48,8 +48,9 @@ class IcpConfig:
             blocks, and no result depends on a tile size.
         use_pallas: chooses the JAX package's Pallas gate kernel on a TPU.
             No effect in this package.
-        approx_knn: approximate normal k-NN (TPU ``approx_min_k``). Not
-            ported yet; ``icp_register`` refuses it.
+        approx_knn: approximate normal k-NN (TPU ``approx_min_k``). Runs
+            the exact k-NN here, as the JAX package does off the TPU; it
+            stays a fingerprint field of ``FixedPrep``.
         record_trajectory: per-iteration trajectory buffers (max_iterations
             slots instead of one).
         gate_method / grid_cell_cap: overlap-gate engine, read when the gate
@@ -70,8 +71,10 @@ class IcpConfig:
         chunk_iterations: iterations per chunk of chunked dispatch (not
             ported).
         warm_start / warm_start_points / warm_start_correspondences:
-            coarse-to-fine warm start (not ported; ``warm_start=True`` is
-            refused).
+            coarse-to-fine warm start: a registration of clouds subsampled
+            to about warm_start_points points (warm_start_correspondences
+            selected) gives the full run its initial parameters; clouds at
+            or below warm_start_points skip it (``plan_warm_start``).
         convergence_floor_scale: absolute convergence noise floor in units
             of eps(dtype) * max|Q| (0 disables it).
         stall_policy: TPU degraded-window policy of chunked dispatch. No

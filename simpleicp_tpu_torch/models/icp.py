@@ -19,6 +19,13 @@ Pipeline of ``icp_register``:
      Gauss-Newton solve -> convergence on the mean/std change;
   6. a-posteriori uncertainties.
 
+Serving: ``prepare_fixed`` runs stages 3-4 of an ungated configuration once
+for a fixed cloud (a ``FixedPrep``, which ``FixedPrep.save`` and
+``load_fixed_prep`` carry through an npz file), and ``icp_register(...,
+fixed_prep=prep)`` starts at stage 5 for every movable cloud. Warm start
+(``warm_start=True``): a coarse registration of stride-subsampled clouds
+gives the full run its initial parameters (``plan_warm_start``).
+
 The loop runs on the host and keeps its state on the device; it reads one
 flag back per ICP iteration (converged or failed) and one per Gauss-Newton
 step, and the gate reads back the number of survivors (the dilate gate
@@ -30,6 +37,8 @@ iteration it stops at, the buffers it fills.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import math
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -191,6 +200,13 @@ def _static_ungated_selection(nf: int, C: int):
     return host_idx, valid
 
 
+def _ungated_selection(nf: int, C: int, dev):
+    """``_static_ungated_selection`` as (sel_idx int32, sel_valid bool)
+    tensors on ``dev``."""
+    host_idx, valid_np = _static_ungated_selection(nf, C)
+    return torch.as_tensor(host_idx, device=dev), torch.as_tensor(valid_np, device=dev)
+
+
 def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig):
     """Overlap gate and fixed-count selection.
 
@@ -199,9 +215,7 @@ def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig):
     dev = Xf.device
     C = cfg.correspondences
     if not cfg.overlap_enabled:
-        host_idx, valid_np = _static_ungated_selection(Xf.shape[0], C)
-        return (torch.as_tensor(host_idx, device=dev),
-                torch.as_tensor(valid_np, device=dev), ERR_OK)
+        return (*_ungated_selection(Xf.shape[0], C, dev), ERR_OK)
     # The initial transform applies before the gate. One transformed cloud
     # serves the dilate gate's bounding box, its occupancy and its exact
     # sweeps, so its mask is the brute gate's bit for bit.
@@ -465,22 +479,14 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 ITEM_GRID = "item 11 (gridhash)"
 
 
-def _resolve_engines(cfg: IcpConfig, nf: int, nm: int, *,
-                     fixed_prep) -> IcpConfig:
+def _resolve_engines(cfg: IcpConfig, nf: int, nm: int) -> IcpConfig:
     """The configuration with its matcher, gate and dispatch resolved as the
     JAX package resolves them off the TPU. Every setting this package does
     not run yet raises NotImplementedError naming the ROADMAP item that will
-    port it; none is ignored."""
-    for hit, what, item in (
-        (cfg.dispatch == "chunked", "dispatch='chunked'",
-         "item 12 (chunked dispatch)"),
-        (cfg.warm_start, "warm_start=True", "item 10 (serving)"),
-        (cfg.approx_knn, "approx_knn=True",
-         "item 15 (approximate normal k-NN)"),
-        (fixed_prep is not None, "the fixed_prep argument", "item 10 (serving)"),
-    ):
-        if hit:
-            raise not_ported(what, item)
+    port it; none is ignored. (``approx_knn`` runs the exact k-NN, as the
+    JAX package does off the TPU.)"""
+    if cfg.dispatch == "chunked":
+        raise not_ported("dispatch='chunked'", "item 12 (chunked dispatch)")
     match = cfg.match_method
     if match == "auto":
         has_radius = cfg.match_radius > 0 or cfg.overlap_enabled
@@ -538,6 +544,312 @@ def _as_tensor(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x), dtype=dtype, device=device).contiguous()
 
 
+def _host_f64(x) -> np.ndarray:
+    """A parameter vector (numpy, sequence or tensor) as a float64 array on
+    the host; a tensor's read is counted."""
+    if isinstance(x, torch.Tensor):
+        return read_array(x.detach()).astype(np.float64)
+    return np.asarray(x, np.float64)
+
+
+def _dtype_name(dtype) -> str:
+    """A torch or numpy dtype by its numpy name ("float32"), as the JAX
+    package's messages print it."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _user_normals(normals_fix, planarity_fix, nf: int, dtype, dev):
+    """The user's per-point normals and planarity (ones when not given) as
+    tensors on ``dev``."""
+    normals = _as_tensor(normals_fix, dtype, dev)
+    planarity = (torch.ones(nf, dtype=dtype, device=dev) if planarity_fix is None
+                 else _as_tensor(planarity_fix, dtype, dev))
+    return normals, planarity
+
+
+def plan_warm_start(
+    X_fix,
+    X_mov,
+    cfg: IcpConfig,
+    *,
+    rbp_observed_values=None,
+    rbp_observation_weights=None,
+    normals_fix=None,
+    planarity_fix=None,
+    planarity_mov=None,
+    device: Union[str, torch.device, None] = None,
+    dtype: Optional[torch.dtype] = None,
+):
+    """Coarse-to-fine warm start, as in the JAX package.
+
+    A cheap registration of stride-subsampled clouds (the same geometry)
+    lands the parameters near the optimum, and its result becomes the full
+    run's initial values (zero-weight observations, which also move the
+    overlap gate's initial transform), so the full run spends its
+    iterations on refinement. Clouds at or below ``warm_start_points`` skip
+    the coarse pass. The strides are ceil(n / warm_start_points); the
+    coarse pass selects min(correspondences, warm_start_correspondences)
+    points, matches by brute force with no radius, resolves its gate with
+    "auto", and widens the gate radius by sqrt(max stride), the growth of a
+    subsampled surface's point spacing. Tensors are sliced where they lie:
+    the coarse pass runs on strided views of the clouds (and of
+    ``normals_fix``, ``planarity_fix`` and ``planarity_mov``), so nothing
+    is copied to the host. Only a converged coarse result is adopted;
+    frozen (inf-weight) parameters keep the user's values.
+
+    Raises ValueError on finite-weight observations: the warm start
+    replaces initial values, and such an observation is part of the
+    objective.
+
+    Returns (cfg with warm_start cleared, the possibly updated
+    rbp_observed_values).
+    """
+    w_np = (np.zeros(6) if rbp_observation_weights is None
+            else _host_f64(rbp_observation_weights))
+    if np.any((w_np > 0) & np.isfinite(w_np)):
+        raise ValueError(
+            "warm_start cannot be combined with finite-weight rbp "
+            "observations: the warm start replaces the parameters' "
+            "INITIAL values, and a finite observation weight makes the "
+            "observed value part of the objective. Freeze parameters "
+            "with weight=inf, or disable warm_start."
+        )
+    cfg = dataclasses.replace(cfg, warm_start=False)
+
+    def sliceable(x):
+        return x if hasattr(x, "shape") else np.asarray(x)
+
+    Xf_s, Xm_s = sliceable(X_fix), sliceable(X_mov)
+    nf, nm = Xf_s.shape[0], Xm_s.shape[0]
+    n_ws = cfg.warm_start_points
+    if max(nf, nm) <= n_ws:
+        return cfg, rbp_observed_values
+    sf, sm = -(-nf // n_ws), -(-nm // n_ws)
+    mod_ws = cfg.max_overlap_distance
+    if math.isfinite(mod_ws) and mod_ws > 0:
+        mod_ws = mod_ws * float(max(sf, sm)) ** 0.5
+    ws_cfg = dataclasses.replace(
+        cfg,
+        correspondences=min(cfg.correspondences, cfg.warm_start_correspondences),
+        match_method="brute", match_radius=0.0, match_cell_cap=0,
+        ref_tile=0, grid_cell_cap=0, gate_method="auto",
+        max_overlap_distance=mod_ws,
+    )
+
+    def strided(x, s):
+        return None if x is None else sliceable(x)[::s]
+
+    res = icp_register(
+        Xf_s[::sf], Xm_s[::sm], ws_cfg,
+        rbp_observed_values=rbp_observed_values,
+        rbp_observation_weights=rbp_observation_weights,
+        normals_fix=strided(normals_fix, sf),
+        planarity_fix=strided(planarity_fix, sf),
+        planarity_mov=strided(planarity_mov, sm),
+        device=device, dtype=dtype,
+    )
+    # One host read: the flags the decision needs and the coarse parameters
+    # (float64 holds both dtypes' values exactly).
+    vals = read_array(torch.cat([
+        torch.stack([res.error_code.double(), res.converged.double(),
+                     res.n_iterations.double()]),
+        res.p.double(),
+    ]))
+    error, converged, n_it = int(vals[0]), bool(vals[1]), int(vals[2])
+    log = logging.getLogger(__name__)
+    if error == ERR_OK and converged:
+        obs_np = (np.zeros(6) if rbp_observed_values is None
+                  else _host_f64(rbp_observed_values))
+        rbp_observed_values = np.where(np.isinf(w_np), obs_np, vals[3:])
+        log.info(
+            "warm start: coarse registration on %d x %d subsampled "
+            "points, %d iterations, converged=True",
+            -(-nf // sf), -(-nm // sm), n_it,
+        )
+    elif error == ERR_OK:
+        # A coarse pass still drifting at max_iterations can seed the full
+        # run farther from the basin than a cold start.
+        log.warning(
+            "warm start: coarse registration did not converge in %d "
+            "iterations — starting cold", n_it
+        )
+    else:
+        log.warning(
+            "warm start: coarse registration failed with error "
+            "code %d — starting cold", error
+        )
+    return cfg, rbp_observed_values
+
+
+class FixedPrep(NamedTuple):
+    """The fixed cloud's share of an ungated registration, computed once
+    (``prepare_fixed``) for any number of registrations against it
+    (``icp_register(..., fixed_prep=prep)``): the serving path that
+    localises many scans against one fixed map.
+
+    Without an overlap gate the selection and the normals at the selected
+    points depend only on the fixed cloud and the config. Pass the same
+    fixed cloud, and a config with equal correspondences, neighbors and
+    approx_knn and no gate, to the consuming calls, in the preparation's
+    dtype and on its device: a mismatch raises. The fields and the npz
+    format of ``save`` are the JAX package's, so a file written by either
+    package loads in the other."""
+
+    Q: torch.Tensor          # (C,3) selected fixed points
+    normals: torch.Tensor    # (C,3) normals at Q
+    planarity: torch.Tensor  # (C,) planarity at Q
+    sel_idx: torch.Tensor    # (C,) int32 indices into the fixed cloud
+    sel_valid: torch.Tensor  # (C,) bool validity (nf < C padding)
+    n_fix: int               # fixed-cloud row count (consistency check)
+    correspondences: int     # cfg fingerprint: selection count
+    neighbors: int           # cfg fingerprint: k of the normals' k-NN
+    approx_knn: bool         # cfg fingerprint
+
+    def save(self, path) -> None:
+        """Write an ``.npz`` with the keys, dtypes and layout of the JAX
+        package's ``FixedPrep.save``, so that a deployment prepares once
+        offline and loads the file with ``load_fixed_prep`` at start-up.
+        Bit-exact."""
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        np.savez(
+            path, Q=host(self.Q), normals=host(self.normals),
+            planarity=host(self.planarity), sel_idx=host(self.sel_idx),
+            sel_valid=host(self.sel_valid),
+            meta=np.asarray([self.n_fix, self.correspondences,
+                             self.neighbors, int(self.approx_knn)], np.int64),
+        )
+
+
+def load_fixed_prep(path, *, device: Union[str, torch.device, None] = None
+                    ) -> FixedPrep:
+    """Load a ``FixedPrep.save`` file (of either package) onto ``device``
+    (the card by default, an error without one), in the file's dtype. A
+    preparation is dtype-bound: a float64 file consumed by a float32
+    registration raises there, it is never rounded."""
+    dev = resolve(device, None)[0]
+    with np.load(path) as z:
+        arrays = [torch.as_tensor(z[k], device=dev)
+                  for k in ("Q", "normals", "planarity", "sel_idx", "sel_valid")]
+        meta = z["meta"]
+    return FixedPrep(*arrays, int(meta[0]), int(meta[1]), int(meta[2]),
+                     bool(meta[3]))
+
+
+def prepare_fixed(
+    X_fix,
+    cfg: IcpConfig = IcpConfig(),
+    *,
+    normals_fix=None,
+    planarity_fix=None,
+    device: Union[str, torch.device, None] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> FixedPrep:
+    """Compute the movable-independent stages of an ungated registration
+    once for a fixed cloud: the fixed-count selection and the normals and
+    planarity at the selected points.
+
+    The overlap gate must be off (``max_overlap_distance`` inf or
+    negative): a gated selection depends on the movable cloud. The
+    selection is the same host formula ``icp_register`` uses, and the
+    normals come from the same stage (``_normals_stage``): one launch of
+    the k-NN kernel over all ``correspondences`` queries on the card, or
+    the user's normals gathered at the selection. So a registration with
+    the preparation equals the self-contained one bit for bit. The JAX
+    package sizes this k-NN by its TPU program-time budget (query blocks,
+    or its grid k-NN cascade); here there is no such budget
+    (``program_budget_s`` has no effect) and the k-NN kernel takes any
+    query count in one launch. The JAX blocks and cascade are exact, so the
+    results agree.
+
+    Args:
+        X_fix: (nf, 3) fixed cloud; the same cloud goes to the consuming
+            ``icp_register`` calls.
+        cfg: the config of the consuming registrations (correspondences,
+            neighbors and approx_knn are fingerprinted and checked at use).
+        normals_fix / planarity_fix: optional (nf, 3) normals and (nf,)
+            planarity of the whole fixed cloud, gathered at the selection
+            instead of the k-NN (planarity defaults to ones).
+        device: "cuda" by default (raises without a card); "cpu" runs the
+            plain versions.
+        dtype: float32 by default; the consuming calls must use the same.
+
+    Returns:
+        FixedPrep of tensors on ``device``.
+    """
+    if cfg.overlap_enabled:
+        raise ValueError(
+            "prepare_fixed requires the overlap gate disabled "
+            "(max_overlap_distance=inf/negative): a gated selection "
+            "depends on the movable cloud and cannot be precomputed"
+        )
+    dev, dtype = resolve(device, dtype)
+    Xf = _as_tensor(X_fix, dtype, dev)
+    if Xf.dim() != 2 or Xf.shape[1] != 3:
+        raise ValueError("point clouds must have shape (n, 3)")
+    nf, C = Xf.shape[0], cfg.correspondences
+    _check_round_linspace_domain(C, nf)
+    sel_idx, sel_valid = _ungated_selection(nf, C, dev)
+    Q = Xf[sel_idx.long()].contiguous()
+    if normals_fix is not None:
+        normals_fix, planarity_fix = _user_normals(normals_fix, planarity_fix,
+                                                   nf, dtype, dev)
+    normals, planarity = _normals_stage(Q, Xf, sel_idx, normals_fix,
+                                        planarity_fix, cfg=cfg)
+    return FixedPrep(Q, normals, planarity, sel_idx, sel_valid, nf, C,
+                     cfg.neighbors, cfg.approx_knn)
+
+
+def _same_device(t: torch.Tensor, dev: torch.device) -> bool:
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return t.device == dev
+
+
+def _validate_fixed_prep(fixed_prep: FixedPrep, nf: int, cfg: IcpConfig,
+                         dtype, dev, normals_fix, caller: str) -> None:
+    """The JAX package's checks of a preparation at use, in its order and
+    with its messages (it must have been computed for this cloud, config
+    and dtype, and replaces the normals), and one more: its tensors must
+    lie on the call's device (they are never copied there silently)."""
+    if cfg.overlap_enabled:
+        raise ValueError(
+            "fixed_prep cannot be combined with the overlap gate "
+            "(max_overlap_distance): a gated selection depends on the "
+            "movable cloud — prepare_fixed refuses such configs too"
+        )
+    if normals_fix is not None:
+        raise ValueError(
+            f"pass normals_fix to prepare_fixed, not to the consuming "
+            f"{caller} call — the preparation already contains the "
+            "selected normals"
+        )
+    stamp = (fixed_prep.n_fix, fixed_prep.correspondences,
+             fixed_prep.neighbors, fixed_prep.approx_knn)
+    want = (nf, cfg.correspondences, cfg.neighbors, cfg.approx_knn)
+    if stamp != want:
+        raise ValueError(
+            f"fixed_prep was computed for (n_fix, correspondences, "
+            f"neighbors, approx_knn)={stamp}, but this call needs "
+            f"{want} — re-run prepare_fixed with the matching cloud "
+            "and config"
+        )
+    if fixed_prep.Q.dtype != dtype:
+        raise ValueError(
+            f"fixed_prep dtype {_dtype_name(fixed_prep.Q.dtype)} does not "
+            f"match this call's dtype {_dtype_name(dtype)}"
+        )
+    for t in fixed_prep[:5]:
+        if not _same_device(t, dev):
+            raise ValueError(
+                f"fixed_prep lies on {t.device}, but this {caller} call runs "
+                f"on {dev}: prepare or load it there "
+                "(prepare_fixed(..., device=...), load_fixed_prep(path, "
+                "device=...))"
+            )
+
+
 def icp_register(
     X_fix,
     X_mov,
@@ -548,7 +860,7 @@ def icp_register(
     normals_fix=None,
     planarity_fix=None,
     planarity_mov=None,
-    fixed_prep=None,
+    fixed_prep: Optional[FixedPrep] = None,
     device: Union[str, torch.device, None] = None,
     dtype: Optional[torch.dtype] = None,
 ) -> IcpResult:
@@ -558,7 +870,8 @@ def icp_register(
         X_fix: (nf, 3) fixed cloud (numpy array or tensor).
         X_mov: (nm, 3) movable cloud.
         cfg: pipeline configuration. Settings this package does not run yet
-            raise NotImplementedError; none is ignored.
+            raise NotImplementedError; none is ignored. ``warm_start=True``
+            runs a coarse registration first (``plan_warm_start``).
         rbp_observed_values: (6,) observed parameter values, angles in
             radians; they also give the initial transform.
         rbp_observation_weights: (6,) weights; 0 free, finite > 0 observed,
@@ -569,8 +882,10 @@ def icp_register(
         planarity_mov: optional (nm,) planarity of the movable cloud; a
             correspondence whose movable point is below min_planarity is
             rejected too.
-        fixed_prep: accepted for the JAX package's signature; not ported
-            yet (must be None).
+        fixed_prep: a ``prepare_fixed`` result for this fixed cloud and
+            config, in this call's dtype and on its device: it replaces the
+            selection and the normals, and the result equals the
+            self-contained run's bit for bit.
         device: "cuda" by default, which raises when no card is found;
             "cpu" runs the kernels' plain versions.
         dtype: coordinate dtype, float32 by default (solver math is float64
@@ -599,7 +914,27 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
     if Xf.dim() != 2 or Xf.shape[1] != 3 or Xm.dim() != 2 or Xm.shape[1] != 3:
         raise ValueError("point clouds must have shape (n, 3)")
     _check_round_linspace_domain(cfg.correspondences, Xf.shape[0])
-    cfg = _resolve_engines(cfg, Xf.shape[0], Xm.shape[0], fixed_prep=fixed_prep)
+    if fixed_prep is not None:
+        _validate_fixed_prep(fixed_prep, Xf.shape[0], cfg, dtype, dev,
+                             normals_fix, "icp_register")
+
+    if normals_fix is not None:
+        normals_fix, planarity_fix = _user_normals(normals_fix, planarity_fix,
+                                                   Xf.shape[0], dtype, dev)
+    if planarity_mov is not None:
+        planarity_mov = _as_tensor(planarity_mov, dtype, dev)
+    # Resolved before the warm start, so that a setting this package does
+    # not run yet raises before the coarse pass does any work. The coarse
+    # pass sets its own matcher and gate, so it runs as from the unresolved
+    # config.
+    cfg = _resolve_engines(cfg, Xf.shape[0], Xm.shape[0])
+    if cfg.warm_start:
+        cfg, rbp_observed_values = plan_warm_start(
+            Xf, Xm, cfg, rbp_observed_values=rbp_observed_values,
+            rbp_observation_weights=rbp_observation_weights,
+            normals_fix=normals_fix, planarity_fix=planarity_fix,
+            planarity_mov=planarity_mov, device=dev, dtype=dtype,
+        )
 
     zeros6 = torch.zeros(6, dtype=dtype, device=dev)
     obs_vals = (zeros6 if rbp_observed_values is None
@@ -607,24 +942,20 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
     obs_w = (zeros6 if rbp_observation_weights is None
              else _as_tensor(rbp_observation_weights, dtype, dev))
 
-    if normals_fix is not None:
-        normals_fix = _as_tensor(normals_fix, dtype, dev)
-        planarity_fix = (torch.ones(Xf.shape[0], dtype=dtype, device=dev)
-                         if planarity_fix is None
-                         else _as_tensor(planarity_fix, dtype, dev))
     mov_planarity_fn = None
     if planarity_mov is not None:
-        planarity_mov = _as_tensor(planarity_mov, dtype, dev)
-
         def mov_planarity_fn(m_idx):
             return planarity_mov[m_idx.long()]
 
     H0 = rbp_to_H(obs_vals)
-    sel_idx, sel_valid, error0 = _gate_select_stages(Xf, Xm, H0, cfg=cfg)
-    Q = Xf[sel_idx.long()].contiguous()
-
-    normals, planarity = _normals_stage(Q, Xf, sel_idx, normals_fix,
-                                        planarity_fix, cfg=cfg)
+    if fixed_prep is None:
+        sel_idx, sel_valid, error0 = _gate_select_stages(Xf, Xm, H0, cfg=cfg)
+        Q = Xf[sel_idx.long()].contiguous()
+        normals, planarity = _normals_stage(Q, Xf, sel_idx, normals_fix,
+                                            planarity_fix, cfg=cfg)
+    else:
+        Q, normals, planarity, sel_idx, sel_valid = fixed_prep[:5]
+        error0 = ERR_OK
     match_fn = _make_match_fn(Q, Xm)
 
     def gather_fn(m_idx):

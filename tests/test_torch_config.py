@@ -6,6 +6,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from simpleicp_tpu import IcpConfig as JaxConfig
 from simpleicp_tpu_torch import IcpConfig, config_from_dict, icp_register
@@ -75,9 +76,6 @@ UNPORTED = {
     "grid_matcher": (dict(match_method="grid", match_radius=0.5), {}),
     "grid_gate": (dict(max_overlap_distance=1.0, gate_method="grid"), {}),
     "chunked": (dict(dispatch="chunked"), {}),
-    "warm_start": (dict(warm_start=True), {}),
-    "approx_knn": (dict(approx_knn=True), {}),
-    "fixed_prep": ({}, dict(fixed_prep=object())),
 }
 
 
@@ -108,6 +106,48 @@ def test_ported_settings_run(name):
     res = icp_register(_X, _X + 0.01, IcpConfig(correspondences=10, **cfg_kw),
                        device="cpu", **call_kw)
     assert bool(np.isfinite(res.H.numpy()).all())
+
+
+def _serving_case(name):
+    """(port result, JAX result, the port's default run) of a serving
+    setting, on a 1500-point surface pair in float64."""
+    import jax.numpy as jnp
+
+    from simpleicp_tpu import icp_register as jax_register
+    from simpleicp_tpu import prepare_fixed as jax_prepare_fixed
+    from simpleicp_tpu_torch import prepare_fixed
+
+    rng = np.random.default_rng(5)
+    xy = rng.uniform(-1, 1, (1500, 2))
+    X = np.column_stack([xy, 0.2 * np.sin(3 * xy[:, 0]) + 0.1 * np.cos(2 * xy[:, 1])])
+    Xm = X[::-1] + [0.01, -0.02, 0.005]
+    kw = {"warm_start": dict(warm_start=True, warm_start_points=500),
+          "approx_knn": dict(approx_knn=True), "fixed_prep": {}}[name]
+    j, t = JaxConfig(correspondences=100, **kw), IcpConfig(correspondences=100, **kw)
+    jcall, tcall = {}, {}
+    if name == "fixed_prep":
+        jcall["fixed_prep"] = jax_prepare_fixed(X, j, dtype=jnp.float64)
+        tcall["fixed_prep"] = prepare_fixed(X, t, device="cpu", dtype=torch.float64)
+    return (icp_register(X, Xm, t, device="cpu", dtype=torch.float64, **tcall),
+            jax_register(X, Xm, j, dtype=jnp.float64, **jcall),
+            icp_register(X, Xm, IcpConfig(correspondences=100), device="cpu",
+                         dtype=torch.float64))
+
+
+@pytest.mark.parametrize("name", ["warm_start", "approx_knn", "fixed_prep"])
+def test_serving_settings_run_and_match_jax(name):
+    """warm_start, approx_knn and fixed_prep run (they were refused before
+    serving was ported): each equals the JAX package's run (iterations,
+    selection, H within 1e-9). approx_knn and fixed_prep also equal the
+    port's default run bit for bit (the exact k-NN; the same selection and
+    normals)."""
+    tres, jres, base = _serving_case(name)
+    assert int(tres.n_iterations) == int(jres.n_iterations)
+    assert np.array_equal(tres.sel_idx.numpy(), np.asarray(jres.sel_idx))
+    np.testing.assert_allclose(tres.H.numpy(), np.asarray(jres.H), rtol=0, atol=1e-9)
+    if name != "warm_start":
+        for a, b in zip(tres, base):
+            assert torch.equal(a, b)
 
 
 def test_gated_jax_config_converts_and_runs():

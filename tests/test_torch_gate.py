@@ -309,11 +309,10 @@ def test_auto_gate_resolves_to_brute_up_to_2_40_pairs(monkeypatch):
     from simpleicp_tpu_torch.ops.dilate_gate import plan_dilate_gate
 
     cfg = IcpConfig(max_overlap_distance=1.0)
-    assert icp._resolve_engines(cfg, 2**20, 2**20, fixed_prep=None).gate_method == "brute"
-    big = icp._resolve_engines(cfg, 2**20, 2**20 + 1, fixed_prep=None)
+    assert icp._resolve_engines(cfg, 2**20, 2**20).gate_method == "brute"
+    big = icp._resolve_engines(cfg, 2**20, 2**20 + 1)
     assert big.gate_method == "auto"
     box = (np.zeros(3), np.full(3, 30.0))
     plan = icp._resolve_gate(big, 2**20, 2**20 + 1, lambda: box)
     assert plan is not None and plan == plan_dilate_gate(None, None, 1.0, bbox=box)
-    assert icp._resolve_engines(IcpConfig(), 2**30, 2**30,
-                                fixed_prep=None).gate_method == "auto"
+    assert icp._resolve_engines(IcpConfig(), 2**30, 2**30).gate_method == "auto"

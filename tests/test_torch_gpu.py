@@ -518,3 +518,105 @@ def test_dilate_gated_icp_register_on_the_card(cuda):
     assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
     assert torch.equal(gc.m_idx.cpu(), cc.m_idx)
     assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
+
+
+def _serving_pair(n_fix=20000, n_mov=18000, seed=14):
+    rng = np.random.default_rng(seed)
+
+    def surface(n):
+        xy = rng.uniform(-2, 2, (n, 2))
+        return np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+
+    return surface(n_fix), surface(n_mov) + [0.02, -0.01, 0.01]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prepared_equals_self_contained_on_the_card(cuda, dtype):
+    """prepare_fixed on the card, then a prepared registration: bit-equal to
+    the self-contained run on the card, every field and the last matches;
+    the prepared run launches no k-NN (one match a iteration), the
+    preparation exactly one."""
+    from simpleicp_tpu_torch import IcpConfig, prepare_fixed
+    from simpleicp_tpu_torch.models.icp import _icp_register
+    from simpleicp_tpu_torch.ops import knn_cuda
+
+    X_fix, X_mov = _serving_pair()
+    Xf = torch.as_tensor(X_fix, dtype=dtype, device=cuda)
+    Xm = torch.as_tensor(X_mov, dtype=dtype, device=cuda)
+    cfg = IcpConfig(correspondences=2000, max_iterations=30)
+    knn_cuda.reset_launch_counts()
+    prep = prepare_fixed(Xf, cfg, device=cuda, dtype=dtype)
+    assert knn_cuda.LAUNCHES["knn_search"] == 1
+
+    def run(fixed_prep):
+        return _icp_register(
+            Xf, Xm, cfg, rbp_observed_values=None, rbp_observation_weights=None,
+            normals_fix=None, planarity_fix=None, planarity_mov=None,
+            fixed_prep=fixed_prep, device=cuda, dtype=dtype)
+
+    knn_cuda.reset_launch_counts()
+    p, pc = run(prep)
+    torch.cuda.synchronize()
+    assert knn_cuda.LAUNCHES == {"match_transform": int(p.n_iterations), "knn_search": 0,
+                                 "nn_search": 0, "nn_search_d2": 0}
+    s, sc = run(None)
+    for f in p._fields:
+        assert torch.equal(getattr(p, f), getattr(s, f)), f
+    assert torch.equal(pc.m_idx, sc.m_idx)
+    assert bool(p.converged) and int(p.error_code) == 0
+
+
+def test_loaded_preparation_on_the_card(cuda, tmp_path):
+    """A preparation saved from the card and loaded back onto it (the
+    default device of load_fixed_prep) is bit-equal and serves a
+    registration bit-equal to the self-contained one; a float64 file is
+    refused by a float32 call, and a preparation on the CPU by a call on
+    the card."""
+    from simpleicp_tpu_torch import IcpConfig, icp_register, load_fixed_prep, prepare_fixed
+
+    X_fix, X_mov = _serving_pair(12000, 12000, 15)
+    cfg = IcpConfig(correspondences=1000)
+    prep = prepare_fixed(X_fix, cfg)
+    prep.save(tmp_path / "p32.npz")
+    loaded = load_fixed_prep(tmp_path / "p32.npz")
+    assert loaded.Q.is_cuda and loaded.Q.dtype == torch.float32
+    for a, b in zip(prep[:5], loaded[:5]):
+        assert torch.equal(a, b)
+    ref = icp_register(X_fix, X_mov, cfg)
+    got = icp_register(X_fix, X_mov, cfg, fixed_prep=loaded)
+    for f in ref._fields:
+        assert torch.equal(getattr(ref, f), getattr(got, f)), f
+
+    prepare_fixed(X_fix, cfg, dtype=torch.float64).save(tmp_path / "p64.npz")
+    p64 = load_fixed_prep(tmp_path / "p64.npz")
+    assert p64.Q.dtype == torch.float64 and p64.Q.is_cuda
+    with pytest.raises(ValueError, match="fixed_prep dtype float64 does not match "
+                                         "this call's dtype float32"):
+        icp_register(X_fix, X_mov, cfg, fixed_prep=p64)
+    on_cpu = load_fixed_prep(tmp_path / "p32.npz", device="cpu")
+    with pytest.raises(ValueError, match="fixed_prep lies on cpu, but this icp_register "
+                                         "call runs on cuda"):
+        icp_register(X_fix, X_mov, cfg, fixed_prep=on_cpu)
+
+
+def test_warm_start_on_the_card(cuda):
+    """warm_start=True on the card: the coarse pass runs on strided views of
+    the clouds on the card (its own k-NN and match launches, one more k-NN
+    in all), and float64 on the card equals float64 on the CPU (iterations,
+    selection, H within 1e-9)."""
+    from simpleicp_tpu_torch import IcpConfig, icp_register
+    from simpleicp_tpu_torch.ops import knn_cuda
+
+    X_fix, X_mov = _serving_pair(30000, 30000, 16)
+    cfg = IcpConfig(correspondences=1000, warm_start=True, warm_start_points=10000)
+    Xf = torch.as_tensor(X_fix, dtype=torch.float64, device=cuda)
+    Xm = torch.as_tensor(X_mov, dtype=torch.float64, device=cuda)
+    knn_cuda.reset_launch_counts()
+    g = icp_register(Xf, Xm, cfg, dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert knn_cuda.LAUNCHES["knn_search"] == 2
+    assert knn_cuda.LAUNCHES["match_transform"] > int(g.n_iterations)
+    c = icp_register(X_fix, X_mov, cfg, device="cpu", dtype=torch.float64)
+    assert int(g.n_iterations) == int(c.n_iterations)
+    assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
+    assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
