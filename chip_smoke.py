@@ -54,6 +54,19 @@ Phases, each printing one JSON object on a line of its own:
            wall times (medians of 3), the preparation's time, launches of
            each kernel (a prepared registration launches no k-NN), all
            launches (torch.profiler) and host reads;
+  batch    icp_register_batch, float32 on the card: 100k pairs, each under
+           its own rigid motion from the seed, in ungated batches of 8 and
+           32 and a brute-gated batch of 8 (C=1000): every pair converged
+           with its motion recovered to 2e-3; one launch of each kernel per
+           batch call (the match once an iteration); the match, the k-NN
+           and the d2-only 1-NN bit-equal to their plain versions and to
+           their single-pair launches at each batch's own shapes (8 and
+           32 x 1000 x 100k, 8 x 100k x 100k); float64 batches equal to each pair's own
+           icp_register (iterations, error codes, selection, matches; H to
+           1e-9); the batch's wall time against B sequential registrations
+           (medians of 3, in turns), registrations per second, launches,
+           host reads, and all launches and device busy time
+           (torch.profiler) of the batch and of one of its registrations;
   times    kernel times (CUDA events, warm L2; the match and the k-NN as
            CUDA-graph replays, so that the wrappers' host work does not set
            the pace) beside their bounds and the plain versions' times; the
@@ -91,7 +104,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "scale", "gated", "dilate",
-          "cli", "serve", "times", "profile")
+          "cli", "serve", "batch", "times", "profile")
 KERNELS = ("match_transform", "knn_search", "nn_search", "dilate")
 SOURCES = {
     "match_transform": "simpleicp_tpu_torch/csrc/knn.cu",
@@ -1307,6 +1320,219 @@ def phase_serve(torch, cmp):
     return serve_launches
 
 
+# Batch mode: pairs of the 100k cell's size, each under its own rigid
+# motion; ungated batches of 8 and 32 and a brute-gated batch of 8
+# (partial-overlap pairs, 1e10 gate pairs each), C=1000.
+BATCH_SIZES = (8, 32)
+BATCH_GATED = 8
+
+
+def batch_pairs(n_pairs, seed, gated=False):
+    """n_pairs pairs of N_MAIN points: a fixed surface and an independent
+    sample of it (over x shifted by 1, as partial_pair, when gated), moved
+    by the pair's own rigid motion from the seed (angles up to 0.03 rad,
+    shifts up to 0.06). Returns float64 (X_fix (B, n, 3), X_mov (B, n, 3),
+    t (B, 3), x where the overlap starts)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fix, mov, ts = [], [], []
+    for _ in range(n_pairs):
+        a, t = rng.uniform(-0.03, 0.03, 3), rng.uniform(-0.06, 0.06, 3)
+        X_fix = surface(rng, N_MAIN)
+        S = surface(rng, N_MAIN)
+        if gated:
+            S[:, 0] += 1.0
+            S[:, 2] = 0.3 * np.sin(2 * S[:, 0]) + 0.2 * np.cos(3 * S[:, 1])
+        fix.append(X_fix)
+        mov.append((S - t) @ rotation(a))
+        ts.append(t)
+    return np.stack(fix), np.stack(mov), np.stack(ts), -1.0
+
+
+def pair_of(res, b):
+    """Pair b of a batch result, as a one-pair result."""
+    return type(res)(*(v[b] for v in res))
+
+
+def check_batch_kernels(torch, cmp, res, Xf, Xm, cfg, tag):
+    """The three batched kernels at the batch's own shapes, timed against
+    one pair's launch (warm L2), and each bit-equal to its plain version on
+    the whole batch and to its single-pair launch pair by pair: the match
+    (B x C x nm, under the batch's final H), the k-NN (B x C x nf, k
+    neighbours) and, gated, the 1-NN's d2-only mode
+    (B x nf x nm, the gate's own call: the movable clouds under the initial
+    H, here the identity)."""
+    from simpleicp_tpu_torch.ops import knn
+
+    n0 = len(cmp.cases)
+    B, C = res.sel_idx.shape
+    Q = torch.gather(Xf, 1, res.sel_idx.long()[..., None].expand(-1, -1, 3))
+    H = res.H.to(Xf.dtype)
+    calls = [("match_transform", f"{B} x {C} x {Xm.shape[1]}, final H",
+              lambda: knn.match_transform(Q, Xm, H),
+              lambda: knn.match_transform_plain(Q, Xm, H),
+              lambda b: knn.match_transform(Q[b], Xm[b], H[b])),
+             ("knn_search", f"{B} x {C} x {Xf.shape[1]}, k={cfg.neighbors}",
+              lambda: knn.knn_search(Q, Xf, cfg.neighbors),
+              lambda: knn.knn_search_plain(Q, Xf, cfg.neighbors),
+              lambda b: knn.knn_search(Q[b], Xf[b], cfg.neighbors))]
+    if cfg.overlap_enabled:
+        calls.append(("nn_search", f"{B} x {Xf.shape[1]} x {Xm.shape[1]}, d2-only mode",
+                      lambda: (knn.min_dist_sq(Xf, Xm), None),
+                      lambda: (knn.nn_search_plain(Xf, Xm)[0], None),
+                      lambda b: (knn.min_dist_sq(Xf[b], Xm[b]), None)))
+    times = {}
+    for kernel, shape, fn_k, fn_p, fn_1 in calls:
+        # the batched call and pair 0's single call (the match and the
+        # k-NN as CUDA-graph replays, as in `times`; the gate's longer
+        # sweep with events)
+        if kernel == "nn_search":
+            times[kernel] = {"batch_ms": cuda_ms(torch, fn_k, 3),
+                             "one_pair_ms": cuda_ms(torch, lambda: fn_1(0), 5)}
+        else:
+            times[kernel] = {"batch_ms": graph_ms(torch, fn_k, 10),
+                             "one_pair_ms": graph_ms(torch, lambda: fn_1(0), 10)}
+        d_k, i_k = fn_k()
+        torch.cuda.synchronize()
+        d_p, i_p = fn_p()
+        torch.cuda.synchronize()
+        cmp.record(kernel, f"float32 {tag} batch {shape}", d_k, i_k, d_p, i_p)
+        singles = [fn_1(b) for b in range(B)]
+        torch.cuda.synchronize()
+        d_1 = torch.stack([d for d, _ in singles])
+        i_1 = None if i_k is None else torch.stack([i for _, i in singles])
+        cmp.record(kernel, f"float32 {tag} batch {shape}, against {B} single-pair launches",
+                   d_k, i_k, d_1, i_1)
+    return cmp.since(n0), times
+
+
+def phase_batch(torch, cmp):
+    """icp_register_batch on the card: float32 batches of 100k pairs (B=8
+    and 32 ungated, B=8 brute-gated), each pair converged with its motion
+    recovered; one launch of each kernel per batch call (the match once an
+    iteration); the batched kernels bit-equal to their plain versions and
+    to their single-pair launches at the batch's shapes; float64 batches
+    equal to each pair's own icp_register on the card; wall time against B
+    sequential registrations (medians of 3, in turns), launches, host reads,
+    and all launches and device busy time (torch.profiler) of the batch and
+    of one registration. Returns each kernel's launches in the B=8
+    batches."""
+    from simpleicp_tpu_torch import IcpConfig, icp_register_batch
+    from simpleicp_tpu_torch.models.icp import _icp_register
+
+    t_phase = time.perf_counter()
+    dev, f32, f64 = torch.device("cuda"), torch.float32, torch.float64
+    ungated = batch_pairs(max(BATCH_SIZES), SEED + 21)
+    gated = batch_pairs(BATCH_GATED, SEED + 22, gated=True)
+    out = {"phase": "batch", "n_fix": N_MAIN, "n_mov": N_MAIN, "correspondences": 1000,
+           "input": "float32 tensors already on the card"}
+    cases = [(f"B={B}", ungated, B, None) for B in BATCH_SIZES]
+    cases.append((f"gated B={BATCH_GATED}", gated, BATCH_GATED, GATE_RADIUS))
+    for tag, (A, M, ts, x0), B, gate in cases:
+        cfg = (IcpConfig() if gate is None else IcpConfig(max_overlap_distance=gate))
+        Xf = torch.as_tensor(A[:B], dtype=f32, device=dev)
+        Xm = torch.as_tensor(M[:B], dtype=f32, device=dev)
+
+        def batch():
+            return icp_register_batch(Xf, Xm, cfg, device=dev, dtype=f32)
+
+        def single(b):
+            return _icp_register(
+                Xf[b], Xm[b], cfg, rbp_observed_values=None, rbp_observation_weights=None,
+                normals_fix=None, planarity_fix=None, planarity_mov=None, fixed_prep=None,
+                device=dev, dtype=f32)[0]
+
+        def sequential():
+            return [single(b) for b in range(B)]
+
+        res, first_s, launches, reads = timed(torch, batch)
+        n_it = [int(v) for v in res.n_iterations.cpu()]
+        errs = [check_recovery(pair_of(res, b), ts[b], f"batch {tag} pair {b}")
+                for b in range(B)]
+        if gate is not None:
+            for b in range(B):
+                check_overlap(pair_of(res, b), A[b], x0, f"batch {tag} pair {b}")
+        want = {"match_transform": max(n_it), "knn_search": 1, "nn_search": 0,
+                "nn_search_d2": 0 if gate is None else 1, "dilate": 0}
+        check(launches == want, f"batch {tag}: launched {launches}, expected {want} "
+              "(one launch of each kernel per batch call, the match once an iteration)")
+        seq, _, seq_launches, seq_reads = timed(torch, sequential)
+        rows, _ = timed_runs(torch, {"batch": batch, "sequential": sequential}, 3)
+        row = {"n_iterations": n_it, "translation_err_max": max(errs),
+               "sequential_n_iterations": [int(r.n_iterations) for r in seq],
+               "batch": {**rows["batch"], "launches": launches, "first_run_s": first_s},
+               "sequential": {**rows["sequential"], "launches": seq_launches,
+                              "host_reads_total": seq_reads},
+               "host_reads": {"batch": reads, "sequential": seq_reads}}
+        # the batch, and one of the B sequential registrations (pair 0):
+        # the profiler's own host cost grows with every event it records
+        row["one_registration"] = {"n_iterations": n_it[0]}
+        for label, fn in (("batch", batch), ("one_registration", lambda: single(0))):
+            _, wall_ms, events = traced(torch, fn)
+            row[label]["all_launches"] = len(events)
+            row[label]["device_busy_ms"] = sum(e.time_range.elapsed_us() for e in events) / 1e3
+            row[label]["traced_wall_ms"] = wall_ms
+        row["registrations_per_s"] = {
+            label: B / rows[label]["median_s"] for label in ("batch", "sequential")}
+        row["speedup"] = rows["sequential"]["median_s"] / rows["batch"]["median_s"]
+        # every batch's own shapes: at B=32 the k-NN's plan takes one chunk
+        # (the scan writes the result, no merge) where at B=8 it takes two,
+        # and the match gets fewer chunks a pair
+        row["kernel_vs_plain"], row["kernel_times"] = check_batch_kernels(
+            torch, cmp, res, Xf, Xm, cfg, tag)
+        out[tag] = row
+        del Xf, Xm, res, seq
+
+    # float64 on the card: each pair of the batch against its own
+    # icp_register (recorded, for the last matches of every pair)
+    for tag, (A, M, _, _), gate in (("B=8", ungated, None),
+                                    (f"gated B={BATCH_GATED}", gated, GATE_RADIUS)):
+        # at most 30 iterations: a float64 pair may never meet the relative
+        # criterion (check_recovery) and would run all 100, in the batch and
+        # alone
+        cfg = IcpConfig(record_trajectory=True, max_iterations=30, **(
+            {} if gate is None else {"max_overlap_distance": gate}))
+        Xf = torch.as_tensor(A[:BATCH_GATED], dtype=f64, device=dev)
+        Xm = torch.as_tensor(M[:BATCH_GATED], dtype=f64, device=dev)
+        res = icp_register_batch(Xf, Xm, cfg, device=dev, dtype=f64)
+        dH = 0.0
+        for b in range(BATCH_GATED):
+            own, carry = _icp_register(
+                Xf[b], Xm[b], cfg, rbp_observed_values=None, rbp_observation_weights=None,
+                normals_fix=None, planarity_fix=None, planarity_mov=None, fixed_prep=None,
+                device=dev, dtype=f64)
+            one, what = pair_of(res, b), f"float64 batch {tag} pair {b}"
+            n = int(one.n_iterations)
+            check(n == int(own.n_iterations) and int(one.error_code) == int(own.error_code),
+                  f"{what}: iterations or error code differ from its icp_register")
+            check(int(one.error_code) == 0, f"{what}: error code {int(one.error_code)}")
+            for f in ("sel_idx", "sel_valid", "iter_midx"):
+                check(torch.equal(getattr(one, f), getattr(own, f)), f"{what}: {f} differs")
+            check(torch.equal(one.iter_midx[n - 1], carry.m_idx),
+                  f"{what}: the last matches differ")
+            dH = max(dH, float((one.H - own.H).abs().max()))
+        check(dH <= 1e-9, f"float64 batch {tag}: H differs from icp_register by {dH} > 1e-9")
+        out[f"float64_{tag}_vs_icp_register"] = {
+            "n_iterations": [int(v) for v in res.n_iterations.cpu()],
+            "iterations_error_codes_selection_matches_equal": True, "H_max_abs_diff": dH}
+        del Xf, Xm, res
+    # each kernel's launches on the batch path: the B=8 batches' (the dilate
+    # gate is refused in batch mode)
+    ungated_l = out[f"B={BATCH_GATED}"]["batch"]["launches"]
+    gated_l = out[f"gated B={BATCH_GATED}"]["batch"]["launches"]
+    batch_launches = {"match_transform": ungated_l["match_transform"],
+                      "knn_search": ungated_l["knn_search"],
+                      "nn_search": gated_l["nn_search"] + gated_l["nn_search_d2"],
+                      "dilate": ungated_l["dilate"] + gated_l["dilate"]}
+    for name in ("match_transform", "knn_search", "nn_search"):
+        check(batch_launches[name] > 0, f"batch: the {name} kernel was not launched")
+    out["kernel_launches_on_the_batch_path"] = batch_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return batch_launches
+
+
 def cuda_ms(torch, fn, reps):
     """Mean ms per call over reps calls between two CUDA events, after two
     warm-up calls."""
@@ -1773,6 +1999,11 @@ KERNEL_NAMES = {"match_scan": "match_transform", "match_finish": "match_transfor
                 "nn1_arg_finish": "nn_search", "dilate_kernel": "dilate"}
 
 
+# Device launches (kernels, copies, fills) of one float32 registration of
+# the 100k cell before the loop took a pair axis (H100 80GB HBM3, 700 W).
+LAUNCHES_100K = 7303
+
+
 def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
     """Where the time of one float32 registration goes: host wall time,
     the device's busy time (sum of kernel durations; one stream, so they
@@ -1810,6 +2041,13 @@ def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
                 port[KERNEL_NAMES[short]] += ms
         busy_ms = sum(v[0] for v in by_name.values())
         check(busy_ms > 0, f"profile {label}: no device time was traced")
+        if label == "100k":
+            # one registration runs the batch's loop on a batch of one, with
+            # no per-pair freezes: its launches stay those of the loop before
+            # the pair axis, within 2 %
+            check(abs(len(kernels) - LAUNCHES_100K) <= 0.02 * LAUNCHES_100K,
+                  f"profile 100k: {len(kernels)} launches, not within 2 % of "
+                  f"{LAUNCHES_100K}")
         if gate is not None:
             check(port["nn_search"] > 0, f"profile {label}: no gate kernel traced")
         if label.startswith("dilate"):
@@ -1863,6 +2101,7 @@ def main(argv=None) -> int:
     if "cli" in phases:
         phase_cli(torch)
     serve = phase_serve(torch, cmp) if "serve" in phases else None
+    batch = phase_batch(torch, cmp) if "batch" in phases else None
     times = (phase_times(torch, scale, gated_big, phases, dil)
              if "times" in phases else None)
     if "profile" in phases:
@@ -1875,7 +2114,9 @@ def main(argv=None) -> int:
         # time is "ms"), the dilate-gated 1.2M registration for the dilation;
         # and on the serving path (serve_launches): the preparation's k-NN,
         # a prepared registration's matches, and the gated warm start's
-        # 1-NN and dilation.
+        # 1-NN and dilation; and on the batch path (batch_launches): the
+        # B=8 batches' match, k-NN and 1-NN (the dilate gate is refused in
+        # batch mode).
         modes = {"d2_only": gated_launches["nn_search_d2"], "index": gated_launches["nn_search"]}
         launches = {**main_info[0], "nn_search": sum(modes.values()),
                     "dilate": dil["launches"]["dilate"]}
@@ -1889,7 +2130,8 @@ def main(argv=None) -> int:
              "max_abs_err": errs[name], **{k: times[name][k] for k in keys},
              **({**{k: times[name][k] for k in nn_keys}, "launches_by_mode": modes}
                 if name == "nn_search" else {}),
-             **({} if serve is None else {"serve_launches": serve[name]})}
+             **({} if serve is None else {"serve_launches": serve[name]}),
+             **({} if batch is None else {"batch_launches": batch.get(name, 0)})}
             for name in KERNELS
         ]})
     check("jax" not in sys.modules, "JAX was imported during the run")

@@ -30,6 +30,7 @@ from .models.icp import (  # noqa: E402
     FixedPrep,
     IcpResult,
     icp_register,
+    icp_register_batch,
     load_fixed_prep,
     prepare_fixed,
 )
@@ -56,6 +57,7 @@ __all__ = [
     "fixed_prep_from_jax",
     "fixed_prep_to_numpy",
     "icp_register",
+    "icp_register_batch",
     "load_fixed_prep",
     "prepare_fixed",
     "result_to_numpy",

@@ -101,6 +101,23 @@
 //   Per pair: 8 distance operations, one compare, a share of the vote and
 //   a kKnnQ-th of a load, so about 10 issues, plus the insertions.
 //
+// The pair axis (icp_register_batch): every kernel takes a batch of cloud
+// pairs in one launch, each pair's queries against its own refs (and, for
+// the match, its own H). The scans' grid gains a dimension, blockIdx.z the
+// pair (blockIdx.x and .y keep the chunk and the query block); the finish,
+// reduce and merge passes take the pair on blockIdx.y. Each pass first moves
+// its pointers to its pair: queries and outputs by the pair stride the
+// wrapper gives (q_pair queries; the 1-NN wrappers launch slices of a
+// pair's queries), refs by n, the mask by n, H by h_pair scalars, the
+// partials by their own per-pair size. The k-NN scan instead reads its
+// refs and mask at an int32 offset from the pair's first ref, so that no
+// moved pointer holds registers through its scan. A pair's blocks run the
+// same code on the same data as the pair's own launch, and the reduction
+// across chunks keeps its ascending order, so each pair's answer is the
+// single launch's, bit for bit, whatever the chunk plan. At most 65 535
+// pairs a launch (the grid's z and y limits), and below 2^31 refs in all
+// for the k-NN; the wrappers slice larger batches.
+//
 // All: every multiply, add and subtract of the transform and the distance
 // is an explicit round-to-nearest intrinsic (__fmul_rn / __fadd_rn /
 // __fsub_rn, __dmul_rn / __dadd_rn / __dsub_rn), which nvcc never contracts
@@ -210,18 +227,19 @@ __device__ __forceinline__ void load_h(const T* __restrict__ h_mem, T (&h)[12]) 
 }
 
 // Loads this thread's kNnStage refs of the tile at `base` into registers;
-// a masked ref, or one at or past `hi`, becomes +inf coordinates.
+// a masked ref, or one at or past `hi`, becomes +inf coordinates. Ref j is
+// read at r[off + j] (and mask[off + j]).
 template <typename T, bool kXf>
 __device__ __forceinline__ void nn1_fetch(const T* __restrict__ r,
                                           const uint8_t* __restrict__ mask,
                                           const T (&h)[12], int base, int hi,
                                           T (&sx)[kNnStage], T (&sy)[kNnStage],
-                                          T (&sz)[kNnStage]) {
+                                          T (&sz)[kNnStage], int off = 0) {
 #pragma unroll
   for (int m = 0; m < kNnStage; ++m) {
     const int j = base + threadIdx.x + m * kThreads;
-    if (j < hi && (mask == nullptr || mask[j])) {
-      load_ref<T, kXf>(r, h, j, sx[m], sy[m], sz[m]);
+    if (j < hi && (mask == nullptr || mask[off + j])) {
+      load_ref<T, kXf>(r, h, off + j, sx[m], sy[m], sz[m]);
     } else {
       sx[m] = sy[m] = sz[m] = Rn<T>::inf();
     }
@@ -239,19 +257,26 @@ __device__ __forceinline__ void nn1_store(Ref4<T>* tile, const T (&sx)[kNnStage]
 }
 
 // The 1-NN scan of one chunk of the reference axis for kNnQ x kThreads
-// queries, refs moved by H when kXf. d2-only (kIndex false): part_d[chunk][q]
-// is the least d2. Index mode: part_d as well, and part_b[chunk][q] the
-// first ref of the first sub-tile that holds it (meaningful when part_d is
-// finite).
+// queries of pair blockIdx.z, refs moved by H when kXf. d2-only (kIndex
+// false): part_d[pair][chunk][q] is the least d2 (part_pair apart). Index
+// mode: part_d as well, and part_b[pair][chunk][q] the first ref of the first
+// sub-tile that holds it (meaningful when part_d is finite).
 template <typename T, bool kIndex, bool kXf>
 __device__ __forceinline__ void nn1_scan_body(Ref4<T> (*tiles)[kNnTile],
-                                              const T* __restrict__ q, int nq,
+                                              const T* __restrict__ q, int nq, int q_pair,
                                               const T* __restrict__ r, int n,
                                               const uint8_t* __restrict__ mask,
-                                              const T* __restrict__ h_mem, int chunk_len,
-                                              T* __restrict__ part_d,
-                                              int* __restrict__ part_b) {
+                                              const T* __restrict__ h_mem, int h_pair,
+                                              int chunk_len, T* __restrict__ part_d,
+                                              int* __restrict__ part_b, size_t part_pair) {
   using A = Rn<T>;
+  // the pair's queries, refs, mask and H; its partials are offset where
+  // they are written
+  const size_t pair = blockIdx.z;
+  q += pair * 3 * q_pair;
+  r += pair * 3 * n;
+  if (mask != nullptr) mask += pair * n;
+  if (kXf) h_mem += pair * h_pair;
   T h[12];
   load_h<T, kXf>(h_mem, h);
   const int lo = blockIdx.x * chunk_len;
@@ -319,37 +344,42 @@ __device__ __forceinline__ void nn1_scan_body(Ref4<T> (*tiles)[kNnTile],
   for (int k = 0; k < kNnQ; ++k) {
     const int qi = q0 + k * kThreads;
     if (qi < nq) {
-      part_d[(size_t)blockIdx.x * nq + qi] = best[k];
-      if (kIndex) part_b[(size_t)blockIdx.x * nq + qi] = first[k];
+      const size_t at = blockIdx.z * part_pair + (size_t)blockIdx.x * nq + qi;
+      part_d[at] = best[k];
+      if (kIndex) part_b[at] = first[k];
     }
   }
 }
 
 template <typename T, bool kIndex>
 __global__ void __launch_bounds__(kThreads)
-nn1_scan(const T* __restrict__ q, int nq, const T* __restrict__ r, int n,
+nn1_scan(const T* __restrict__ q, int nq, int q_pair, const T* __restrict__ r, int n,
          const uint8_t* __restrict__ mask, int chunk_len, T* __restrict__ part_d,
-         int* __restrict__ part_b) {
+         int* __restrict__ part_b, size_t part_pair) {
   __shared__ Ref4<T> tiles[2][kNnTile];
-  nn1_scan_body<T, kIndex, false>(tiles, q, nq, r, n, mask, nullptr, chunk_len,
-                                  part_d, part_b);
+  nn1_scan_body<T, kIndex, false>(tiles, q, nq, q_pair, r, n, mask, nullptr, 0, chunk_len,
+                                  part_d, part_b, part_pair);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-match_scan(const T* __restrict__ q, int nq, const T* __restrict__ x, int n,
-           const T* __restrict__ h, int chunk_len, T* __restrict__ part_d,
+match_scan(const T* __restrict__ q, int nq, int q_pair, const T* __restrict__ x, int n,
+           const T* __restrict__ h, int h_pair, int chunk_len, T* __restrict__ part_d,
            int* __restrict__ part_b) {
   __shared__ Ref4<T> tiles[2][kNnTile];
-  nn1_scan_body<T, true, true>(tiles, q, nq, x, n, nullptr, h, chunk_len, part_d,
-                               part_b);
+  nn1_scan_body<T, true, true>(tiles, q, nq, q_pair, x, n, nullptr, h, h_pair, chunk_len,
+                               part_d, part_b, (size_t)gridDim.x * nq);
 }
 
-// d2-only: the least of the per-chunk minima (fmin; none is NaN).
+// d2-only: the least of the per-chunk minima (fmin; none is NaN), for the
+// queries of pair blockIdx.y.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-nn1_min_reduce(const T* __restrict__ part_d, int nq, int n_chunks,
+nn1_min_reduce(const T* __restrict__ part_d, int nq, int q_pair, int n_chunks,
                T* __restrict__ out_d) {
+  const size_t pair = blockIdx.y;
+  part_d += pair * n_chunks * nq;
+  out_d += pair * q_pair;
   const int qi = blockIdx.x * kThreads + threadIdx.x;
   if (qi >= nq) return;
   T best = part_d[qi];
@@ -357,21 +387,31 @@ nn1_min_reduce(const T* __restrict__ part_d, int nq, int n_chunks,
   out_d[qi] = best;
 }
 
-// Index mode, a warp per query: the first chunk with the least d2 (strict
+// Index mode, a warp per query of pair blockIdx.y: the first chunk with the
+// least d2 (strict
 // '<' over each lane's ascending chunks, then the lowest chunk among the
 // lanes' equal minima), then the first ref of its recorded sub-tile at
 // exactly that distance, one ref a lane, moved by H again when kXf. A
 // masked ref had +inf coordinates in the scan, so it is skipped here; with
 // no finite d2 the index is 0.
 template <typename T, bool kXf>
-__device__ __forceinline__ void arg_finish_body(const T* __restrict__ q, int nq,
+__device__ __forceinline__ void arg_finish_body(const T* __restrict__ q, int nq, int q_pair,
                                                 const T* __restrict__ r, int n,
                                                 const uint8_t* __restrict__ mask,
-                                                const T* __restrict__ h_mem, int n_chunks,
-                                                const T* __restrict__ part_d,
+                                                const T* __restrict__ h_mem, int h_pair,
+                                                int n_chunks, const T* __restrict__ part_d,
                                                 const int* __restrict__ part_b,
                                                 T* __restrict__ out_d,
                                                 int* __restrict__ out_i) {
+  const size_t pair = blockIdx.y;
+  q += pair * 3 * q_pair;
+  r += pair * 3 * n;
+  if (mask != nullptr) mask += pair * n;
+  if (kXf) h_mem += pair * h_pair;
+  part_d += pair * n_chunks * nq;
+  part_b += pair * n_chunks * nq;
+  out_d += pair * q_pair;
+  out_i += pair * q_pair;
   const int lane = threadIdx.x & 31;
   const int qi = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   if (qi >= nq) return;  // the whole warp
@@ -417,22 +457,22 @@ __device__ __forceinline__ void arg_finish_body(const T* __restrict__ q, int nq,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-nn1_arg_finish(const T* __restrict__ q, int nq, const T* __restrict__ r, int n,
+nn1_arg_finish(const T* __restrict__ q, int nq, int q_pair, const T* __restrict__ r, int n,
                const uint8_t* __restrict__ mask, int n_chunks,
                const T* __restrict__ part_d, const int* __restrict__ part_b,
                T* __restrict__ out_d, int* __restrict__ out_i) {
-  arg_finish_body<T, false>(q, nq, r, n, mask, nullptr, n_chunks, part_d, part_b,
-                            out_d, out_i);
+  arg_finish_body<T, false>(q, nq, q_pair, r, n, mask, nullptr, 0, n_chunks, part_d,
+                            part_b, out_d, out_i);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-match_finish(const T* __restrict__ q, int nq, const T* __restrict__ x, int n,
-             const T* __restrict__ h, int n_chunks, const T* __restrict__ part_d,
-             const int* __restrict__ part_b, T* __restrict__ out_d,
-             int* __restrict__ out_i) {
-  arg_finish_body<T, true>(q, nq, x, n, nullptr, h, n_chunks, part_d, part_b, out_d,
-                           out_i);
+match_finish(const T* __restrict__ q, int nq, int q_pair, const T* __restrict__ x, int n,
+             const T* __restrict__ h, int h_pair, int n_chunks,
+             const T* __restrict__ part_d, const int* __restrict__ part_b,
+             T* __restrict__ out_d, int* __restrict__ out_i) {
+  arg_finish_body<T, true>(q, nq, q_pair, x, n, nullptr, h, h_pair, n_chunks, part_d,
+                           part_b, out_d, out_i);
 }
 
 // ------------------------------------------------------------------ k-NN
@@ -580,14 +620,23 @@ __device__ __forceinline__ void wl_store(const WarpList<T, kS>& l, int k,
 }
 
 // The k-NN scan of one chunk (blockIdx.y) of the reference axis for the
-// kKnnBlock queries of blockIdx.x, kKnnQ a warp. Writes each query's list
-// to part[q][chunk][0..k); with one chunk part is the output, filled.
+// kKnnBlock queries of blockIdx.x of pair blockIdx.z, kKnnQ a warp. Writes
+// each query's list to part[pair][q][chunk][0..k); with one chunk part is
+// the output, filled.
 template <typename T, int kS>
 __global__ void __launch_bounds__(kThreads)
 knn_scan(const T* __restrict__ q, int nq, const T* __restrict__ r, int n,
          const uint8_t* __restrict__ mask, int k, int chunk_len, int n_chunks,
          T* __restrict__ part_d, int* __restrict__ part_i) {
   __shared__ Ref4<T> tiles[2][kNnTile];
+  // The pair's queries. Its refs and mask are read at the pair's first ref,
+  // off = pair * n (below 2^31: the wrapper slices the pairs), from the
+  // kernel's own parameters: a pointer moved to the pair would hold two
+  // registers each through the scan, and the float32 scan would then fit
+  // 4 blocks a SM where it fits 5. Its partials are offset where they are
+  // written.
+  q += (size_t)blockIdx.z * 3 * nq;
+  const int off = blockIdx.z * n;
   const T no_h[12] = {};
   const int lane = threadIdx.x & 31;
   const int q0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kKnnQ;
@@ -611,13 +660,13 @@ knn_scan(const T* __restrict__ q, int nq, const T* __restrict__ r, int n,
   }
 
   T sx[kNnStage], sy[kNnStage], sz[kNnStage];
-  nn1_fetch<T, false>(r, mask, no_h, lo, hi, sx, sy, sz);
+  nn1_fetch<T, false>(r, mask, no_h, lo, hi, sx, sy, sz, off);
   nn1_store(tiles[0], sx, sy, sz);
   __syncthreads();
   int buf = 0;
   for (int base = lo; base < hi; base += kNnTile) {
     const bool more = base + kNnTile < hi;  // the same in every thread
-    if (more) nn1_fetch<T, false>(r, mask, no_h, base + kNnTile, hi, sx, sy, sz);
+    if (more) nn1_fetch<T, false>(r, mask, no_h, base + kNnTile, hi, sx, sy, sz, off);
     const Ref4<T>* t = tiles[buf];
     const int cnt = min(kNnTile, hi - base);
     for (int s = 0; s < cnt; s += 32) {  // past cnt the tile holds +inf refs
@@ -643,21 +692,32 @@ knn_scan(const T* __restrict__ q, int nq, const T* __restrict__ r, int n,
   for (int a = 0; a < kKnnQ; ++a) {
     const int qi = q0 + a;
     if (qi < nq) {  // the same in every lane
-      if (n_chunks == 1) wl_fill(lst[a], k, qx[a], qy[a], qz[a], r, n, mask, lane);
-      const size_t row = ((size_t)qi * n_chunks + c) * k;
+      if (n_chunks == 1)
+        wl_fill(lst[a], k, qx[a], qy[a], qz[a], r + 3 * (size_t)off, n,
+                mask == nullptr ? nullptr : mask + off, lane);
+      const size_t row = (((size_t)blockIdx.z * nq + qi) * n_chunks + c) * k;
       wl_store(lst[a], k, part_d + row, part_i + row, lane);
     }
   }
 }
 
-// A warp per query: the chunks' lists in ascending (chunk, slot) order
-// through the same filter and insertion, then the +inf tail, then out.
+// A warp per query of pair blockIdx.y: the chunks' lists in ascending
+// (chunk, slot) order through the same filter and insertion, then the +inf
+// tail, then out.
 template <typename T, int kS>
 __global__ void __launch_bounds__(kThreads)
 knn_merge(const T* __restrict__ q, int nq, const T* __restrict__ r, int n,
           const uint8_t* __restrict__ mask, int k, int n_chunks,
           const T* __restrict__ part_d, const int* __restrict__ part_i,
           T* __restrict__ out_d, int* __restrict__ out_i) {
+  const size_t pair = blockIdx.y;
+  q += pair * 3 * nq;
+  r += pair * 3 * n;
+  if (mask != nullptr) mask += pair * n;
+  part_d += pair * nq * n_chunks * k;
+  part_i += pair * nq * n_chunks * k;
+  out_d += pair * nq * k;
+  out_i += pair * nq * k;
   const int lane = threadIdx.x & 31;
   const int qi = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   if (qi >= nq) return;  // the whole warp
@@ -684,63 +744,63 @@ knn_merge(const T* __restrict__ q, int nq, const T* __restrict__ r, int n,
 
 // ------------------------------------------------------------- launchers
 
-// Index mode: the scan into (n_chunks, nq) partials, then the finish pass.
+// Index mode: the scan into (n_pairs, n_chunks, nq) partials, then the finish
+// pass.
 template <typename T>
-int launch_nn(const void* q, int nq, const void* r, int n, const void* mask,
-              int chunk_len, int n_chunks, void* part_d, void* part_b,
-              void* out_d, void* out_i, void* stream) {
+int launch_nn(const void* q, int nq, int q_pair, const void* r, int n, const void* mask,
+              int chunk_len, int n_chunks, void* part_d, void* part_b, void* out_d,
+              void* out_i, int n_pairs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 scan_grid(n_chunks, (nq + kNnQ * kThreads - 1) / (kNnQ * kThreads));
+  const dim3 scan_grid(n_chunks, (nq + kNnQ * kThreads - 1) / (kNnQ * kThreads), n_pairs);
   nn1_scan<T, true><<<scan_grid, kThreads, 0, s>>>(
-      static_cast<const T*>(q), nq, static_cast<const T*>(r), n,
+      static_cast<const T*>(q), nq, q_pair, static_cast<const T*>(r), n,
       static_cast<const uint8_t*>(mask), chunk_len, static_cast<T*>(part_d),
-      static_cast<int*>(part_b));
+      static_cast<int*>(part_b), (size_t)n_chunks * nq);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nn1_arg_finish<T><<<(nq + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      static_cast<const T*>(q), nq, static_cast<const T*>(r), n,
+  nn1_arg_finish<T><<<dim3((nq + kWarps - 1) / kWarps, n_pairs), kThreads, 0, s>>>(
+      static_cast<const T*>(q), nq, q_pair, static_cast<const T*>(r), n,
       static_cast<const uint8_t*>(mask), n_chunks, static_cast<const T*>(part_d),
-      static_cast<const int*>(part_b), static_cast<T*>(out_d),
-      static_cast<int*>(out_i));
+      static_cast<const int*>(part_b), static_cast<T*>(out_d), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The match: the index mode's two passes with the refs moved by H.
 template <typename T>
-int launch_match(const void* q, int nq, const void* x, int n, const void* h,
-                 int chunk_len, int n_chunks, void* part_d, void* part_b,
-                 void* out_d, void* out_i, void* stream) {
+int launch_match(const void* q, int nq, int q_pair, const void* x, int n, const void* h,
+                 int h_pair, int chunk_len, int n_chunks, void* part_d, void* part_b,
+                 void* out_d, void* out_i, int n_pairs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 scan_grid(n_chunks, (nq + kNnQ * kThreads - 1) / (kNnQ * kThreads));
+  const dim3 scan_grid(n_chunks, (nq + kNnQ * kThreads - 1) / (kNnQ * kThreads), n_pairs);
   match_scan<T><<<scan_grid, kThreads, 0, s>>>(
-      static_cast<const T*>(q), nq, static_cast<const T*>(x), n,
-      static_cast<const T*>(h), chunk_len, static_cast<T*>(part_d),
+      static_cast<const T*>(q), nq, q_pair, static_cast<const T*>(x), n,
+      static_cast<const T*>(h), h_pair, chunk_len, static_cast<T*>(part_d),
       static_cast<int*>(part_b));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  match_finish<T><<<(nq + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      static_cast<const T*>(q), nq, static_cast<const T*>(x), n,
-      static_cast<const T*>(h), n_chunks, static_cast<const T*>(part_d),
-      static_cast<const int*>(part_b), static_cast<T*>(out_d),
-      static_cast<int*>(out_i));
+  match_finish<T><<<dim3((nq + kWarps - 1) / kWarps, n_pairs), kThreads, 0, s>>>(
+      static_cast<const T*>(q), nq, q_pair, static_cast<const T*>(x), n,
+      static_cast<const T*>(h), h_pair, n_chunks, static_cast<const T*>(part_d),
+      static_cast<const int*>(part_b), static_cast<T*>(out_d), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }
 
 // d2-only mode: with one chunk the scan writes out_d itself (part_d unused).
 template <typename T>
-int launch_nn_d2(const void* q, int nq, const void* r, int n, const void* mask,
-                 int chunk_len, int n_chunks, void* part_d, void* out_d,
+int launch_nn_d2(const void* q, int nq, int q_pair, const void* r, int n, const void* mask,
+                 int chunk_len, int n_chunks, void* part_d, void* out_d, int n_pairs,
                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 scan_grid(n_chunks, (nq + kNnQ * kThreads - 1) / (kNnQ * kThreads));
+  const bool one = n_chunks == 1;
+  const dim3 scan_grid(n_chunks, (nq + kNnQ * kThreads - 1) / (kNnQ * kThreads), n_pairs);
   nn1_scan<T, false><<<scan_grid, kThreads, 0, s>>>(
-      static_cast<const T*>(q), nq, static_cast<const T*>(r), n,
-      static_cast<const uint8_t*>(mask), chunk_len,
-      static_cast<T*>(n_chunks == 1 ? out_d : part_d), nullptr);
+      static_cast<const T*>(q), nq, q_pair, static_cast<const T*>(r), n,
+      static_cast<const uint8_t*>(mask), chunk_len, static_cast<T*>(one ? out_d : part_d),
+      nullptr, one ? (size_t)q_pair : (size_t)n_chunks * nq);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
-  nn1_min_reduce<T><<<(nq + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const T*>(part_d), nq, n_chunks, static_cast<T*>(out_d));
+  if (err != cudaSuccess || one) return static_cast<int>(err);
+  nn1_min_reduce<T><<<dim3((nq + kThreads - 1) / kThreads, n_pairs), kThreads, 0, s>>>(
+      static_cast<const T*>(part_d), nq, q_pair, n_chunks, static_cast<T*>(out_d));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -748,17 +808,17 @@ int launch_nn_d2(const void* q, int nq, const void* r, int n, const void* mask,
 template <typename T, int kS>
 int launch_knn_slots(const void* q, int nq, const void* r, int n, const void* mask,
                      int k, int chunk_len, int n_chunks, void* part_d, void* part_i,
-                     void* out_d, void* out_i, void* stream) {
+                     void* out_d, void* out_i, int n_pairs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool one = n_chunks == 1;
-  const dim3 scan_grid((nq + kKnnBlock - 1) / kKnnBlock, n_chunks);
+  const dim3 scan_grid((nq + kKnnBlock - 1) / kKnnBlock, n_chunks, n_pairs);
   knn_scan<T, kS><<<scan_grid, kThreads, 0, s>>>(
       static_cast<const T*>(q), nq, static_cast<const T*>(r), n,
       static_cast<const uint8_t*>(mask), k, chunk_len, n_chunks,
       static_cast<T*>(one ? out_d : part_d), static_cast<int*>(one ? out_i : part_i));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || one) return static_cast<int>(err);
-  knn_merge<T, kS><<<(nq + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+  knn_merge<T, kS><<<dim3((nq + kWarps - 1) / kWarps, n_pairs), kThreads, 0, s>>>(
       static_cast<const T*>(q), nq, static_cast<const T*>(r), n,
       static_cast<const uint8_t*>(mask), k, n_chunks, static_cast<const T*>(part_d),
       static_cast<const int*>(part_i), static_cast<T*>(out_d), static_cast<int*>(out_i));
@@ -768,12 +828,12 @@ int launch_knn_slots(const void* q, int nq, const void* r, int n, const void* ma
 template <typename T>
 int launch_knn(const void* q, int nq, const void* r, int n, const void* mask, int k,
                int chunk_len, int n_chunks, void* part_d, void* part_i, void* out_d,
-               void* out_i, void* stream) {
+               void* out_i, int n_pairs, void* stream) {
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   return k <= 32 ? launch_knn_slots<T, 1>(q, nq, r, n, mask, k, chunk_len, n_chunks,
-                                          part_d, part_i, out_d, out_i, stream)
+                                          part_d, part_i, out_d, out_i, n_pairs, stream)
                  : launch_knn_slots<T, 2>(q, nq, r, n, mask, k, chunk_len, n_chunks,
-                                          part_d, part_i, out_d, out_i, stream);
+                                          part_d, part_i, out_d, out_i, n_pairs, stream);
 }
 
 // Blocks of one scan kernel resident on the current device at once.
@@ -805,73 +865,78 @@ int resident(int kernel, int* out) {
 
 extern "C" {
 
-// Match: part_d (n_chunks, nq) and part_b (n_chunks, nq) int32 scratch; h
-// the first three rows of H (12 scalars), read on the device.
-int simpleicp_match_transform_f32(const void* q, int nq, const void* x, int n,
-                                  const void* h, int chunk_len, int n_chunks,
-                                  void* part_d, void* part_b, void* out_d,
-                                  void* out_i, void* stream) {
-  return launch_match<float>(q, nq, x, n, h, chunk_len, n_chunks, part_d, part_b,
-                             out_d, out_i, stream);
+// Every entry point takes n_pairs cloud pairs, contiguous one after another:
+// queries (n_pairs, q_pair, 3), of which the launch takes nq from the
+// pointer on in each pair, refs (n_pairs, n, 3), the mask (n_pairs, n), H
+// (n_pairs, 3 or 4, 4) with h_pair = 12 or 16 scalars a pair (the first 12
+// read), outputs (n_pairs, q_pair[, k]) from the pointer on. The pair
+// strides and counts come last, before the stream.
+
+// Match: part_d (n_pairs, n_chunks, nq) and part_b (n_pairs, n_chunks, nq)
+// int32 scratch; H read on the device.
+int simpleicp_match_transform_f32(const void* q, int nq, const void* x, int n, const void* h,
+                                  int chunk_len, int n_chunks, void* part_d, void* part_b,
+                                  void* out_d, void* out_i, int q_pair, int h_pair,
+                                  int n_pairs, void* stream) {
+  return launch_match<float>(q, nq, q_pair, x, n, h, h_pair, chunk_len, n_chunks, part_d,
+                             part_b, out_d, out_i, n_pairs, stream);
 }
 
-int simpleicp_match_transform_f64(const void* q, int nq, const void* x, int n,
-                                  const void* h, int chunk_len, int n_chunks,
-                                  void* part_d, void* part_b, void* out_d,
-                                  void* out_i, void* stream) {
-  return launch_match<double>(q, nq, x, n, h, chunk_len, n_chunks, part_d, part_b,
-                              out_d, out_i, stream);
+int simpleicp_match_transform_f64(const void* q, int nq, const void* x, int n, const void* h,
+                                  int chunk_len, int n_chunks, void* part_d, void* part_b,
+                                  void* out_d, void* out_i, int q_pair, int h_pair,
+                                  int n_pairs, void* stream) {
+  return launch_match<double>(q, nq, q_pair, x, n, h, h_pair, chunk_len, n_chunks, part_d,
+                              part_b, out_d, out_i, n_pairs, stream);
 }
 
-// 1-NN, index mode: part_d (n_chunks, nq) and part_b (n_chunks, nq) int32
-// scratch.
-int simpleicp_nn_f32(const void* q, int nq, const void* r, int n,
-                     const void* mask, int chunk_len, int n_chunks,
-                     void* part_d, void* part_b, void* out_d, void* out_i,
-                     void* stream) {
-  return launch_nn<float>(q, nq, r, n, mask, chunk_len, n_chunks, part_d,
-                          part_b, out_d, out_i, stream);
+// 1-NN, index mode: part_d (n_pairs, n_chunks, nq) and part_b (n_pairs,
+// n_chunks, nq) int32 scratch.
+int simpleicp_nn_f32(const void* q, int nq, const void* r, int n, const void* mask,
+                     int chunk_len, int n_chunks, void* part_d, void* part_b, void* out_d,
+                     void* out_i, int q_pair, int n_pairs, void* stream) {
+  return launch_nn<float>(q, nq, q_pair, r, n, mask, chunk_len, n_chunks, part_d, part_b,
+                          out_d, out_i, n_pairs, stream);
 }
 
-int simpleicp_nn_f64(const void* q, int nq, const void* r, int n,
-                     const void* mask, int chunk_len, int n_chunks,
-                     void* part_d, void* part_b, void* out_d, void* out_i,
-                     void* stream) {
-  return launch_nn<double>(q, nq, r, n, mask, chunk_len, n_chunks, part_d,
-                           part_b, out_d, out_i, stream);
+int simpleicp_nn_f64(const void* q, int nq, const void* r, int n, const void* mask,
+                     int chunk_len, int n_chunks, void* part_d, void* part_b, void* out_d,
+                     void* out_i, int q_pair, int n_pairs, void* stream) {
+  return launch_nn<double>(q, nq, q_pair, r, n, mask, chunk_len, n_chunks, part_d, part_b,
+                           out_d, out_i, n_pairs, stream);
 }
 
-// 1-NN, d2-only mode: part_d (n_chunks, nq) scratch, unused with one chunk.
-int simpleicp_nn_d2_f32(const void* q, int nq, const void* r, int n,
-                        const void* mask, int chunk_len, int n_chunks,
-                        void* part_d, void* out_d, void* stream) {
-  return launch_nn_d2<float>(q, nq, r, n, mask, chunk_len, n_chunks, part_d,
-                             out_d, stream);
+// 1-NN, d2-only mode: part_d (n_pairs, n_chunks, nq) scratch, unused with
+// one chunk.
+int simpleicp_nn_d2_f32(const void* q, int nq, const void* r, int n, const void* mask,
+                        int chunk_len, int n_chunks, void* part_d, void* out_d, int q_pair,
+                        int n_pairs, void* stream) {
+  return launch_nn_d2<float>(q, nq, q_pair, r, n, mask, chunk_len, n_chunks, part_d,
+                             out_d, n_pairs, stream);
 }
 
-int simpleicp_nn_d2_f64(const void* q, int nq, const void* r, int n,
-                        const void* mask, int chunk_len, int n_chunks,
-                        void* part_d, void* out_d, void* stream) {
-  return launch_nn_d2<double>(q, nq, r, n, mask, chunk_len, n_chunks, part_d,
-                              out_d, stream);
+int simpleicp_nn_d2_f64(const void* q, int nq, const void* r, int n, const void* mask,
+                        int chunk_len, int n_chunks, void* part_d, void* out_d, int q_pair,
+                        int n_pairs, void* stream) {
+  return launch_nn_d2<double>(q, nq, q_pair, r, n, mask, chunk_len, n_chunks, part_d,
+                              out_d, n_pairs, stream);
 }
 
-// k-NN: part_d (nq, n_chunks, k) and part_i (nq, n_chunks, k) int32
-// scratch, unused with one chunk.
-int simpleicp_knn_f32(const void* q, int nq, const void* r, int n,
-                      const void* mask, int k, int chunk_len, int n_chunks,
-                      void* part_d, void* part_i, void* out_d, void* out_i,
-                      void* stream) {
-  return launch_knn<float>(q, nq, r, n, mask, k, chunk_len, n_chunks, part_d,
-                           part_i, out_d, out_i, stream);
+// k-NN (every query of each pair, q_pair = nq): part_d (n_pairs, nq,
+// n_chunks, k) and part_i (n_pairs, nq, n_chunks, k) int32 scratch, unused
+// with one chunk.
+int simpleicp_knn_f32(const void* q, int nq, const void* r, int n, const void* mask, int k,
+                      int chunk_len, int n_chunks, void* part_d, void* part_i, void* out_d,
+                      void* out_i, int n_pairs, void* stream) {
+  return launch_knn<float>(q, nq, r, n, mask, k, chunk_len, n_chunks, part_d, part_i,
+                           out_d, out_i, n_pairs, stream);
 }
 
-int simpleicp_knn_f64(const void* q, int nq, const void* r, int n,
-                      const void* mask, int k, int chunk_len, int n_chunks,
-                      void* part_d, void* part_i, void* out_d, void* out_i,
-                      void* stream) {
-  return launch_knn<double>(q, nq, r, n, mask, k, chunk_len, n_chunks, part_d,
-                            part_i, out_d, out_i, stream);
+int simpleicp_knn_f64(const void* q, int nq, const void* r, int n, const void* mask, int k,
+                      int chunk_len, int n_chunks, void* part_d, void* part_i, void* out_d,
+                      void* out_i, int n_pairs, void* stream) {
+  return launch_knn<double>(q, nq, r, n, mask, k, chunk_len, n_chunks, part_d, part_i,
+                            out_d, out_i, n_pairs, stream);
 }
 
 // Resident blocks on the current device (SMs x blocks per SM) of one scan

@@ -19,6 +19,10 @@ Pipeline of ``icp_register``:
      Gauss-Newton solve -> convergence on the mean/std change;
   6. a-posteriori uncertainties.
 
+Batch: ``icp_register_batch`` registers B pairs at once. Every stage and the
+loop take a leading pair axis, and ``icp_register`` runs them on a batch of
+one; the kernels take the pair axis too (one launch for the batch).
+
 Serving: ``prepare_fixed`` runs stages 3-4 of an ungated configuration once
 for a fixed cloud (a ``FixedPrep``, which ``FixedPrep.save`` and
 ``load_fixed_prep`` carry through an npz file), and ``icp_register(...,
@@ -28,10 +32,11 @@ gives the full run its initial parameters (``plan_warm_start``).
 
 The loop runs on the host and keeps its state on the device; it reads one
 flag back per ICP iteration (converged or failed) and one per Gauss-Newton
-step, and the gate reads back the number of survivors (the dilate gate
-also its bounding box and band; ``utils/sync.py`` counts them). Its
-results equal those of the JAX package's ``lax.while_loop`` field for field: the state it keeps on an error, the
-iteration it stops at, the buffers it fills.
+step, for the whole batch, and the gate reads back each pair's number of
+survivors (the dilate gate also its bounding box and band;
+``utils/sync.py`` counts them). Its results equal those of the JAX
+package's ``lax.while_loop`` field for field: the state it keeps on an
+error, the iteration it stops at, the buffers it fills.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ from ..ops.transform import (
     rotation_matrix_to_euler_angles,
 )
 from ..utils.device import resolve
-from ..utils.sync import read_array, read_flag, read_nonzero
+from ..utils.sync import read_array, read_flag
 from .solver import estimate_uncertainties, gn_solve, linearized_solve
 
 # Error codes of IcpResult.error_code.
@@ -111,7 +116,9 @@ class IcpResult(NamedTuple):
 
 
 class _Carry(NamedTuple):
-    it: int
+    """The loop state of B pairs, each tensor with its leading pair axis."""
+    it: int                         # iterations run by the batch (host)
+    n_it: Optional[torch.Tensor]    # (B,) each pair's iterations; None at B=1
     p: torch.Tensor
     H: torch.Tensor
     dist_w: torch.Tensor
@@ -149,41 +156,50 @@ def _check_round_linspace_domain(correspondences: int, nf: int) -> None:
         )
 
 
-def round_linspace(n_sel: int, n: int, device=None) -> torch.Tensor:
-    """np.round(np.linspace(0, n_sel - 1, n)) as an (n,) int64 tensor,
-    computed as numpy computes it: in float64, step = span / div, y = i *
-    step, y[-1] = span, rounded half to even. (The JAX package emulates
-    these two float64 roundings in int32 limbs because the TPU has no
-    float64; the card and the CPU have it.) n_sel is a host integer."""
-    div = n - 1
-    span = max(int(n_sel) - 1, 0)
-    y = torch.arange(n, dtype=torch.float64, device=device) * (span / div)
-    y[-1] = span
+def round_linspace(n_sel, n: int, device=None) -> torch.Tensor:
+    """np.round(np.linspace(0, n_sel - 1, n)) as an (n,) int64 tensor, or
+    (B, n) for a sequence of B counts, computed as numpy computes it: in
+    float64, step = span / div, y = i * step, y[-1] = span, rounded half to
+    even. (The JAX package emulates these two float64 roundings in int32
+    limbs because the TPU has no float64; the card and the CPU have it.)
+    n_sel is a host integer or sequence of them."""
+    span = np.maximum(np.asarray(n_sel, np.int64) - 1, 0)
+    step = torch.as_tensor(span / (n - 1), dtype=torch.float64, device=device)
+    y = torch.arange(n, dtype=torch.float64, device=device) * step[..., None]
+    y[..., -1] = torch.as_tensor(span, dtype=torch.float64, device=device)
     return torch.round(y).to(torch.int64)
 
 
-def _select_compacted(compacted: torch.Tensor, nf: int, n: int):
-    """Fixed-count equidistant selection over the ascending indices
-    ``compacted`` of the selected fixed points (of nf): round(linspace)
-    positions when more than n are selected, else all of them, the slots
+def _compacted(sel_mask: torch.Tensor) -> torch.Tensor:
+    """The ascending indices of the True entries of an (..., nf) mask along
+    its last axis, zero-padded to nf (the JAX package's compaction), without
+    reading anything back to the host."""
+    nf = sel_mask.shape[-1]
+    slot = torch.where(sel_mask, torch.cumsum(sel_mask, dim=-1) - 1, nf)
+    out = torch.zeros((*sel_mask.shape[:-1], nf + 1), dtype=torch.int64,
+                      device=sel_mask.device)
+    out.scatter_(-1, slot, torch.arange(nf, device=sel_mask.device).expand(sel_mask.shape))
+    return out[..., :nf]
+
+
+def _select_n(sel_mask: torch.Tensor, n: int, counts: Optional[np.ndarray] = None):
+    """The gated selection of the reference's select_n_points over an (nf,)
+    bool mask, or each row of a (B, nf) one: round(linspace) positions among
+    a row's survivors when it has more than n, else all of them, the slots
     past them invalid and holding what the JAX package's zero-padded
-    compaction gives. Returns (sel_idx int32 (n,), valid bool (n,))."""
-    dev = compacted.device
-    n_sel = compacted.shape[0]
-    if n_sel > n:
-        return (compacted[round_linspace(n_sel, n, dev)].to(torch.int32),
-                torch.ones(n, dtype=torch.bool, device=dev))
-    seq = torch.arange(n, device=dev)
-    padded = torch.zeros(nf, dtype=compacted.dtype, device=dev)
-    padded[:n_sel] = compacted
-    return (padded[torch.clamp(seq, max=nf - 1)].to(torch.int32),
-            seq < n_sel)
-
-
-def _select_n(sel_mask: torch.Tensor, n: int):
-    """The gated selection of the reference's select_n_points over a (nf,)
-    bool mask. Returns (sel_idx int32 (n,), valid bool (n,))."""
-    return _select_compacted(read_nonzero(sel_mask), sel_mask.shape[0], n)
+    compaction gives. ``counts`` are the rows' survivor counts (numpy, () or
+    (B,)) when the host already holds them; else they are read, the one host
+    read. Returns (sel_idx int32 (..., n), valid bool (..., n))."""
+    if counts is None:
+        counts = read_array(sel_mask.sum(dim=-1))
+    dev = sel_mask.device
+    nf = sel_mask.shape[-1]
+    # a row with at most n survivors takes positions 0..n-1 (round_linspace
+    # of n is the identity), clipped to the cloud
+    pos = torch.clamp(round_linspace(np.where(counts > n, counts, n), n, dev), max=nf - 1)
+    valid = (torch.arange(n, device=dev)
+             < torch.as_tensor(np.minimum(counts, n), device=dev)[..., None])
+    return torch.gather(_compacted(sel_mask), -1, pos).to(torch.int32), valid
 
 
 def _static_ungated_selection(nf: int, C: int):
@@ -200,28 +216,40 @@ def _static_ungated_selection(nf: int, C: int):
     return host_idx, valid
 
 
-def _ungated_selection(nf: int, C: int, dev):
-    """``_static_ungated_selection`` as (sel_idx int32, sel_valid bool)
-    tensors on ``dev``."""
+def _ungated_selection(nf: int, C: int, dev, lead=()):
+    """``_static_ungated_selection`` as (sel_idx int32 (*lead, C), sel_valid
+    bool (*lead, C)) tensors on ``dev``, the same row for every pair."""
     host_idx, valid_np = _static_ungated_selection(nf, C)
-    return torch.as_tensor(host_idx, device=dev), torch.as_tensor(valid_np, device=dev)
+    return (torch.as_tensor(np.tile(host_idx, (*lead, 1)), device=dev),
+            torch.as_tensor(np.tile(valid_np, (*lead, 1)), device=dev))
+
+
+def _rows(X: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """X[b, idx[b, ...]] for each pair b: X (B, n) or (B, n, d), integer
+    idx (B, ...) -> (B, ...) or (B, ..., d)."""
+    flat = idx.reshape(idx.shape[0], -1).long()
+    if X.dim() == 3:
+        flat = flat[..., None].expand(-1, -1, X.shape[2])
+    return torch.gather(X, 1, flat).reshape(*idx.shape, *X.shape[2:])
 
 
 def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig):
-    """Overlap gate and fixed-count selection.
+    """Overlap gate and fixed-count selection of one pair (Xf (nf, 3), Xm
+    (nm, 3), H0 (4, 4)) or of B pairs (Xf (B, nf, 3), Xm (B, nm, 3), H0 (B,
+    4, 4); the brute gate only).
 
-    Returns (sel_idx, sel_valid, error) with error a host int (ERR_OK or
-    ERR_NO_OVERLAP)."""
+    Returns (sel_idx (..., C), sel_valid (..., C), error) with error a host
+    int32 array, () or (B,), of ERR_OK or ERR_NO_OVERLAP."""
     dev = Xf.device
+    lead, nf = Xf.shape[:-2], Xf.shape[-2]
     C = cfg.correspondences
     if not cfg.overlap_enabled:
-        return (*_ungated_selection(Xf.shape[0], C, dev), ERR_OK)
+        return (*_ungated_selection(nf, C, dev, lead), np.full(lead, ERR_OK, np.int32))
     # The initial transform applies before the gate. One transformed cloud
     # serves the dilate gate's bounding box, its occupancy and its exact
     # sweeps, so its mask is the brute gate's bit for bit.
     Xm0 = apply_H(Xm, H0)
-    plan = _resolve_gate(cfg, Xf.shape[0], Xm.shape[0],
-                         lambda: read_array(bbox_of(Xm0)))
+    plan = _resolve_gate(cfg, nf, Xm.shape[-2], lambda: read_array(bbox_of(Xm0)))
     if plan is not None:
         sel_mask = overlap_mask_dilate(Xf, Xm0, cfg.max_overlap_distance, plan)
     else:
@@ -229,38 +257,40 @@ def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig):
         # The radius is cast to the coordinate dtype before it is squared.
         r = torch.tensor(cfg.max_overlap_distance, dtype=Xf.dtype, device=dev)
         sel_mask = d2 <= r ** 2
-    compacted = read_nonzero(sel_mask)
-    error = ERR_OK
-    if compacted.shape[0] == 0:
-        # No fixed point survives: the selection runs over all of them and
-        # the loop runs no iteration.
-        error = ERR_NO_OVERLAP
-        compacted = torch.arange(Xf.shape[0], device=dev)
-    sel_idx, sel_valid = _select_compacted(compacted, Xf.shape[0], C)
+    # One host read for the whole batch: each pair's count of survivors.
+    counts = read_array(sel_mask.sum(dim=-1))
+    error = np.where(counts == 0, ERR_NO_OVERLAP, ERR_OK).astype(np.int32)
+    if not counts.all():
+        # No fixed point of a pair survives: its selection runs over all of
+        # them and the loop runs no iteration for it.
+        sel_mask = sel_mask | torch.as_tensor(counts == 0, device=dev)[..., None]
+        counts = np.where(counts == 0, nf, counts)
+    sel_idx, sel_valid = _select_n(sel_mask, C, counts)
     return sel_idx, sel_valid, error
 
 
 def _normals_stage(Q, Xf, sel_idx, normals_fix, planarity_fix, *,
                    cfg: IcpConfig):
-    """Normals and planarity at the selected points: the user's, gathered
-    at the selection, or estimated from their k-NN neighbourhoods in the
-    fixed cloud."""
+    """Normals and planarity at the selected points of B pairs (Q (B, C,
+    3), Xf (B, nf, 3)): the user's, gathered at the selection, or estimated
+    from their k-NN neighbourhoods in the fixed cloud (one k-NN call for
+    the batch)."""
     if normals_fix is not None:
-        idx = sel_idx.long()
-        return normals_fix[idx], planarity_fix[idx]
+        return _rows(normals_fix, sel_idx), _rows(planarity_fix, sel_idx)
     _, idxk = knn_search(Q, Xf, cfg.neighbors)
-    neigh = Xf[idxk.long()]  # (C, k, 3)
+    neigh = _rows(Xf, idxk)  # (B, C, k, 3)
     normals, planarity, _ = estimate_normals_from_neighborhoods(neigh)
     return normals, planarity
 
 
 def _make_match_fn(Q, Xm):
-    """The per-iteration matcher: match_fn(Ht) -> (m_idx, m_t, m_orig,
-    m_valid). The match kernel takes the untransformed cloud and Ht, so the
-    moved cloud is never materialized; only the C matched rows are moved."""
+    """The per-iteration matcher of B pairs: match_fn(Ht (B, 4, 4)) ->
+    (m_idx, m_t, m_orig, m_valid). The match kernel takes the untransformed
+    clouds and Ht, one launch for the batch, so the moved clouds are never
+    materialized; only the C matched rows of each are moved."""
     def match_fn(Ht):
         _, m_idx = match_transform(Q, Xm, Ht)
-        m_orig = Xm[m_idx.long()]
+        m_orig = _rows(Xm, m_idx)
         m_valid = torch.ones(m_idx.shape, dtype=torch.bool, device=m_idx.device)
         return m_idx, apply_H(m_orig, Ht), m_orig, m_valid
 
@@ -268,13 +298,15 @@ def _make_match_fn(Q, Xm):
 
 
 def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
-    """The loop-entry state (iteration 0, nothing executed)."""
+    """The loop-entry state of B pairs (iteration 0, nothing executed):
+    obs_vals (B, 6), H0 (B, 4, 4), error0 (B,) int32."""
     C = cfg.correspondences
     T = cfg.max_iterations
     dev = H0.device
+    B = H0.shape[0]
 
     def full(shape, value, dt=dtype):
-        return torch.full(shape, value, dtype=dt, device=dev)
+        return torch.full((B, *shape), value, dtype=dt, device=dev)
 
     auto_dw = cfg.distance_weights is None
     # Trajectory buffers hold max_iterations slots when recording, else one
@@ -283,6 +315,7 @@ def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
     R = T if cfg.record_trajectory else 1
     return _Carry(
         it=0,
+        n_it=None if B == 1 else full((), 0, torch.int32),
         p=obs_vals.to(dtype),
         H=H0,
         dist_w=full((), 1.0 if auto_dw else cfg.distance_weights),
@@ -307,31 +340,48 @@ def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
     )
 
 
-def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
-                 cfg: IcpConfig, dtype, error0: int, H0, match_fn, gather_fn,
-                 mov_planarity_fn=None):
-    """The match -> reject -> solve -> converge iteration.
+def _keep_stopped(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
+    """new where the pair is active, else old (active (B,) against (B, ...))."""
+    return torch.where(active.view(-1, *[1] * (new.dim() - 1)), new, old)
 
-    ``match_fn(Ht) -> (m_idx, m_t, m_orig, m_valid)`` matches against the
-    movable cloud moved by Ht; ``gather_fn(m_idx) -> (C, 3)`` fetches
-    original-frame movable points for the uncertainty estimate;
-    ``mov_planarity_fn(m_idx) -> (C,)``, when given, is the matched movable
-    points' planarity, gated like the fixed side's. ``error0`` is the host
-    error code the loop starts from (ERR_NO_OVERLAP from the gate runs no
-    iteration).
+
+def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
+                 cfg: IcpConfig, dtype, error0, H0, match_fn, gather_fn,
+                 mov_planarity_fn=None):
+    """The match -> reject -> solve -> converge iteration of B pairs at
+    once: Q, normals (B, C, 3), planarity, sel_valid (B, C), obs_vals,
+    obs_w (B, 6), H0 (B, 4, 4).
+
+    ``match_fn(Ht) -> (m_idx, m_t, m_orig, m_valid)`` matches each pair
+    against its movable cloud moved by its Ht; ``gather_fn(m_idx) -> (B, C,
+    3)`` fetches original-frame movable points for the uncertainty
+    estimate; ``mov_planarity_fn(m_idx) -> (B, C)``, when given, is the
+    matched movable points' planarity, gated like the fixed side's.
+    ``error0`` is the host int array (B,) of error codes the pairs start
+    from (ERR_NO_OVERLAP from the gate runs no iteration).
+
+    The iterations run while any pair is active, as the JAX package's
+    vmapped ``lax.while_loop`` does: a pair that has stopped (converged,
+    failed, or never started) keeps its state bit for bit, its trajectory
+    rows are not written, and its ``n_it`` is the step it stopped at. Every
+    active pair is at the same iteration, so the iteration index and its
+    ``it == 0`` branches stay host integers, and one flag is read per
+    iteration for the whole batch. With one pair the loop ends when the
+    pair stops, so nothing needs freezing and nothing is.
 
     Returns (final_carry, uncertainties, covariance).
     """
     T = cfg.max_iterations
+    B = Q.shape[0]
     auto_dw = cfg.distance_weights is None
     nonlinear = cfg.solver == "nonlinear"
     min_planarity = torch.tensor(cfg.min_planarity, dtype=dtype, device=Q.device)
 
-    # Numerical noise floor of the residual statistics: a mean/std change at
-    # or below eps(dtype) * |coords| * scale counts as converged.
+    # Numerical noise floor of each pair's residual statistics: a mean/std
+    # change at or below eps(dtype) * |coords| * scale counts as converged.
     noise_floor = (
         cfg.convergence_floor_scale * torch.finfo(dtype).eps
-        * torch.abs(Q).max()
+        * torch.abs(Q).amax(dim=(-2, -1))
     )
 
     def crit_met(new, old):
@@ -339,10 +389,10 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
             torch.abs(new - old) <= noise_floor
         )
 
-    def body(c: _Carry) -> _Carry:
+    def body(c: _Carry, active: Optional[torch.Tensor]) -> _Carry:
         Ht = rbp_to_H(c.p) if nonlinear else c.H
         m_idx, m_t, m_orig, m_valid = match_fn(Ht)
-        d = ((m_t - Q) * normals).sum(dim=1)  # signed p2plane distances
+        d = ((m_t - Q) * normals).sum(dim=-1)  # signed p2plane distances
 
         # "python": planarity gate first, median/MAD of the survivors;
         # "joint": median/MAD of all matches, both criteria jointly.
@@ -353,9 +403,9 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
         mad_base = matched if cfg.rejection_staging == "joint" else mask_p
         med = masked_median(d, mad_base)
         sigma = 3.0 * masked_mad(d, mad_base, scale=cfg.mad_scale)
-        mask = mask_p & (torch.abs(d - med) <= sigma)
+        mask = mask_p & (torch.abs(d - med[:, None]) <= sigma[:, None])
 
-        count = mask.sum().to(torch.int32)
+        count = mask.sum(dim=-1).to(torch.int32)
         err = torch.where(count < 6, torch.full_like(c.error, ERR_TOO_FEW_CORRESPONDENCES),
                           c.error)
 
@@ -375,15 +425,15 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
         if nonlinear:
             p_new, residuals, gn_rel = gn_solve(
                 c.p, m_orig, Q, normals, mask, dw, obs_vals, obs_w,
-                n_steps=cfg.gn_iterations,
+                n_steps=cfg.gn_iterations, active=active,
             )
             H_new = rbp_to_H(p_new)
         else:
-            gn_rel = torch.zeros((), dtype=dtype, device=Q.device)
+            gn_rel = torch.zeros(B, dtype=dtype, device=Q.device)
             dH, residuals, _ = linearized_solve(m_t, Q, normals, mask)
             H_new = compose_H(dH, c.H)
             a1, a2, a3 = rotation_matrix_to_euler_angles(H_new)
-            p_new = torch.cat([torch.stack([a1, a2, a3]), H_new[:3, 3]])
+            p_new = torch.cat([torch.stack([a1, a2, a3], dim=-1), H_new[:, :3, 3]], dim=-1)
 
         mean = masked_mean(residuals, mask)
         std = masked_std(residuals, mask, ddof=cfg.std_ddof)
@@ -393,23 +443,9 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
 
         # On error keep the previous state.
         bad = err != ERR_OK
-        p_new = torch.where(bad, c.p, p_new)
-        H_new = torch.where(bad, c.H, H_new)
-
-        # The buffers are this loop's own; they are updated in place.
-        c.iter_counts[c.it] = count
-        c.iter_means[c.it] = mean
-        c.iter_stds[c.it] = std
-        c.iter_gn[c.it] = gn_rel
-        if c.it < c.iter_ps.shape[0]:
-            c.iter_ps[c.it] = p_new
-            c.iter_midx[c.it] = m_idx
-            c.iter_masks[c.it] = mask
-            c.iter_dists[c.it] = d
-        return c._replace(
-            it=c.it + 1,
-            p=p_new,
-            H=H_new,
+        new = dict(
+            p=torch.where(bad[:, None], c.p, p_new),
+            H=torch.where(bad[:, None, None], c.H, H_new),
             dist_w=dw,
             converged=converged & ~bad,
             error=err,
@@ -418,19 +454,39 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
             orig_count=orig_count,
             orig_mean=orig_mean,
             orig_std=orig_std,
-            residuals=torch.where(bad, c.residuals, residuals),
-            residual_mask=torch.where(bad, c.residual_mask, mask),
-            m_idx=torch.where(bad, c.m_idx, m_idx),
+            residuals=torch.where(bad[:, None], c.residuals, residuals),
+            residual_mask=torch.where(bad[:, None], c.residual_mask, mask),
+            m_idx=torch.where(bad[:, None], c.m_idx, m_idx),
         )
+        rows = {"iter_counts": count, "iter_means": mean, "iter_stds": std,
+                "iter_gn": gn_rel}
+        if c.it < c.iter_ps.shape[1]:
+            rows.update(iter_ps=new["p"], iter_midx=m_idx, iter_masks=mask, iter_dists=d)
+        if active is not None:
+            # A pair that has stopped keeps its state and its buffers' rows.
+            new = {k: _keep_stopped(active, v, getattr(c, k)) for k, v in new.items()}
+            rows = {k: _keep_stopped(active, v, getattr(c, k)[:, c.it])
+                    for k, v in rows.items()}
+            new["n_it"] = c.n_it + active.to(torch.int32)
+        # The buffers are this loop's own; they are updated in place.
+        for k, v in rows.items():
+            getattr(c, k)[:, c.it] = v
+        return c._replace(it=c.it + 1, **new)
 
     c = make_carry_init(cfg, dtype, obs_vals, H0,
-                        torch.tensor(error0, dtype=torch.int32, device=Q.device))
+                        torch.as_tensor(error0, dtype=torch.int32, device=Q.device))
+    active = None if B == 1 else torch.as_tensor(error0 == ERR_OK, device=Q.device)
     # The JAX loop tests (it < T) & ~converged & (error == OK) before every
-    # iteration, the first included.
-    go = error0 == ERR_OK
+    # iteration, the first included, for each pair.
+    go = bool(np.any(error0 == ERR_OK))
     while go and c.it < T:
-        c = body(c)
-        go = c.it < T and not read_flag(c.converged | (c.error != ERR_OK))
+        c = body(c, active)
+        if c.it < T:
+            stopped = c.converged | (c.error != ERR_OK)
+            if active is not None:
+                active = ~stopped
+                stopped = stopped.all()
+            go = not read_flag(stopped)
 
     uncertainties, covariance = estimate_uncertainties(
         c.p, gather_fn(c.m_idx), Q, normals, c.residual_mask,
@@ -441,12 +497,15 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
 
 def _result_from_carry(c: _Carry, uncertainties, covariance, sel_idx,
                        sel_valid, normals, planarity) -> IcpResult:
+    """The IcpResult of B pairs, each field with its leading pair axis."""
+    n_it = (torch.tensor([c.it], dtype=torch.int32, device=c.H.device)
+            if c.n_it is None else c.n_it)
     return IcpResult(
         H=c.H,
         p=c.p,
         uncertainties=uncertainties,
         covariance=covariance,
-        n_iterations=torch.tensor(c.it, dtype=torch.int32, device=c.H.device),
+        n_iterations=n_it,
         converged=c.converged,
         error_code=c.error,
         iter_counts=c.iter_counts,
@@ -468,6 +527,12 @@ def _result_from_carry(c: _Carry, uncertainties, covariance, sel_idx,
         iter_dists=c.iter_dists,
         iter_gn_rel_steps=c.iter_gn,
     )
+
+
+def _first(t):
+    """The only pair of a one-pair batch: a tuple of tensors (IcpResult,
+    _Carry) with each tensor's pair axis dropped."""
+    return type(t)(*(v[0] if isinstance(v, torch.Tensor) else v for v in t))
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -790,14 +855,15 @@ def prepare_fixed(
         raise ValueError("point clouds must have shape (n, 3)")
     nf, C = Xf.shape[0], cfg.correspondences
     _check_round_linspace_domain(C, nf)
-    sel_idx, sel_valid = _ungated_selection(nf, C, dev)
-    Q = Xf[sel_idx.long()].contiguous()
+    # The stages of icp_register, on the same one-pair batch.
+    sel_idx, sel_valid = _ungated_selection(nf, C, dev, (1,))
+    Q = _rows(Xf[None], sel_idx)
     if normals_fix is not None:
-        normals_fix, planarity_fix = _user_normals(normals_fix, planarity_fix,
-                                                   nf, dtype, dev)
-    normals, planarity = _normals_stage(Q, Xf, sel_idx, normals_fix,
+        normals_fix, planarity_fix = (t[None] for t in _user_normals(
+            normals_fix, planarity_fix, nf, dtype, dev))
+    normals, planarity = _normals_stage(Q, Xf[None], sel_idx, normals_fix,
                                         planarity_fix, cfg=cfg)
-    return FixedPrep(Q, normals, planarity, sel_idx, sel_valid, nf, C,
+    return FixedPrep(Q[0], normals[0], planarity[0], sel_idx[0], sel_valid[0], nf, C,
                      cfg.neighbors, cfg.approx_knn)
 
 
@@ -942,31 +1008,122 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
     obs_w = (zeros6 if rbp_observation_weights is None
              else _as_tensor(rbp_observation_weights, dtype, dev))
 
+    H0 = rbp_to_H(obs_vals)
+    # The gate sees the pair itself; the stages after it and the loop are
+    # the batch's, on a batch of one.
+    Xf1, Xm1 = Xf[None], Xm[None]
+    if fixed_prep is None:
+        sel_idx, sel_valid, error0 = (
+            x[None] for x in _gate_select_stages(Xf, Xm, H0, cfg=cfg))
+        Q = _rows(Xf1, sel_idx)
+        if normals_fix is not None:
+            normals_fix, planarity_fix = normals_fix[None], planarity_fix[None]
+        normals, planarity = _normals_stage(Q, Xf1, sel_idx, normals_fix,
+                                            planarity_fix, cfg=cfg)
+    else:
+        Q, normals, planarity, sel_idx, sel_valid = (t[None] for t in fixed_prep[:5])
+        error0 = np.full(1, ERR_OK, np.int32)
+
     mov_planarity_fn = None
     if planarity_mov is not None:
         def mov_planarity_fn(m_idx):
-            return planarity_mov[m_idx.long()]
-
-    H0 = rbp_to_H(obs_vals)
-    if fixed_prep is None:
-        sel_idx, sel_valid, error0 = _gate_select_stages(Xf, Xm, H0, cfg=cfg)
-        Q = Xf[sel_idx.long()].contiguous()
-        normals, planarity = _normals_stage(Q, Xf, sel_idx, normals_fix,
-                                            planarity_fix, cfg=cfg)
-    else:
-        Q, normals, planarity, sel_idx, sel_valid = fixed_prep[:5]
-        error0 = ERR_OK
-    match_fn = _make_match_fn(Q, Xm)
-
-    def gather_fn(m_idx):
-        return Xm[m_idx.long()]
+            return _rows(planarity_mov[None], m_idx)
 
     final, uncertainties, covariance = run_icp_loop(
-        Q, normals, planarity, sel_valid, obs_vals, obs_w, cfg, dtype,
-        error0, H0, match_fn, gather_fn, mov_planarity_fn=mov_planarity_fn,
+        Q, normals, planarity, sel_valid, obs_vals[None], obs_w[None], cfg, dtype,
+        error0, H0[None], _make_match_fn(Q, Xm1), lambda m_idx: _rows(Xm1, m_idx),
+        mov_planarity_fn=mov_planarity_fn,
     )
     result = _result_from_carry(
         final, uncertainties, covariance, sel_idx, sel_valid, normals,
         planarity,
     )
-    return result, final
+    return _first(result), _first(final)
+
+
+def icp_register_batch(
+    X_fix,
+    X_mov,
+    cfg: IcpConfig = IcpConfig(),
+    *,
+    rbp_observed_values=None,
+    rbp_observation_weights=None,
+    device: Union[str, torch.device, None] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> IcpResult:
+    """Register a batch of B cloud pairs at once, each pair's result that
+    of its own ``icp_register``.
+
+    One loop registers the whole batch, and every stage takes the pairs
+    together: one gate launch, one k-NN launch, one match launch per
+    iteration and one host read per iteration (and per Gauss-Newton step)
+    for all B pairs, where B registrations would take B of each. The card's
+    registrations are launch-bound, so a batch costs about one
+    registration's launches. The loop runs while any pair is active; a
+    pair that has stopped keeps its state, as under the JAX package's
+    vmapped ``lax.while_loop``.
+
+    As in the JAX package, batch mode runs the monolithic loop with no warm
+    start: ``dispatch``, ``chunk_iterations``, ``warm_start`` and
+    ``program_budget_s`` have no effect here. The JAX package's tile shrink
+    (``query_tile``/``ref_tile`` and its "footprint" warning) guards a fault
+    of its TPU worker that cannot happen on the card: the port's kernels
+    hold no distance block, and its plain versions bound their block over
+    the whole batch (``ops/knn.py`` ``_PLAIN_BLOCK_ELEMS``), so the tiles
+    change nothing.
+
+    Args:
+        X_fix: (B, nf, 3) fixed clouds; X_mov: (B, nm, 3) movable clouds.
+        cfg: the configuration shared by the pairs. The grid and dilate
+            gates and the grid matcher are refused (their caps and plans
+            are per cloud); "auto" resolves to the brute matcher and gate.
+        rbp_observed_values / rbp_observation_weights: optional (B, 6)
+            per-pair observations (angles in radians), zeros when not given.
+        device: "cuda" by default (raises without a card); "cpu" runs the
+            plain versions.
+        dtype: coordinate dtype, float32 by default.
+
+    Returns:
+        IcpResult with a leading batch axis on every field: n_iterations,
+        converged and error_code (B,), the trajectory buffers (B, R, C).
+    """
+    if cfg.overlap_enabled and cfg.gate_method in ("grid", "dilate"):
+        raise ValueError(
+            f"gate_method={cfg.gate_method!r} is not supported in batch mode"
+        )
+    if cfg.match_method == "auto":
+        # batch pairs are serving-sized; the grid matcher is per-cloud
+        # static, so auto always resolves to brute here
+        cfg = dataclasses.replace(cfg, match_method="brute")
+    if cfg.match_method != "brute":
+        raise ValueError(
+            "match_method='grid' is not supported in batch mode (its cell "
+            "cap is per-cloud static)"
+        )
+    dev, dtype = resolve(device, dtype)
+    Xf = _as_tensor(X_fix, dtype, dev)
+    Xm = _as_tensor(X_mov, dtype, dev)
+    if Xf.dim() != 3 or Xf.shape[2] != 3 or Xm.dim() != 3 or Xm.shape[2] != 3:
+        raise ValueError("batched clouds must have shape (B, n, 3)")
+    if Xf.shape[0] != Xm.shape[0]:
+        raise ValueError("batch sizes of fixed and movable clouds differ")
+    _check_round_linspace_domain(cfg.correspondences, Xf.shape[1])
+    B = Xf.shape[0]
+    if cfg.overlap_enabled and cfg.gate_method == "auto":
+        cfg = dataclasses.replace(cfg, gate_method="brute")
+
+    zeros = torch.zeros((B, 6), dtype=dtype, device=dev)
+    obs_vals = (zeros if rbp_observed_values is None
+                else _as_tensor(rbp_observed_values, dtype, dev))
+    obs_w = (zeros if rbp_observation_weights is None
+             else _as_tensor(rbp_observation_weights, dtype, dev))
+    H0 = rbp_to_H(obs_vals)
+    sel_idx, sel_valid, error0 = _gate_select_stages(Xf, Xm, H0, cfg=cfg)
+    Q = _rows(Xf, sel_idx)
+    normals, planarity = _normals_stage(Q, Xf, sel_idx, None, None, cfg=cfg)
+    final, uncertainties, covariance = run_icp_loop(
+        Q, normals, planarity, sel_valid, obs_vals, obs_w, cfg, dtype,
+        error0, H0, _make_match_fn(Q, Xm), lambda m_idx: _rows(Xm, m_idx),
+    )
+    return _result_from_carry(final, uncertainties, covariance, sel_idx,
+                              sel_valid, normals, planarity)

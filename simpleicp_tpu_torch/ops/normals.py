@@ -90,19 +90,19 @@ def estimate_normals_from_neighborhoods(neigh: torch.Tensor):
     """Normals and planarity from gathered k-NN neighbourhoods.
 
     Args:
-        neigh: (n, k, 3) coordinates of the k nearest neighbours of each of
-            the n selected points (the point itself included).
+        neigh: (..., n, k, 3) coordinates of the k nearest neighbours of each
+            of the n selected points (the point itself included).
 
     Returns:
-        (normals, planarity, eigvals): (n, 3) unit normals, (n,) planarity in
-        [0, 1], (n, 3) eigenvalues sorted descending.
+        (normals, planarity, eigvals): (..., n, 3) unit normals, (..., n)
+        planarity in [0, 1], (..., n, 3) eigenvalues sorted descending.
     """
-    k = neigh.shape[1]
-    mean = neigh.mean(dim=1, keepdim=True)
+    k = neigh.shape[-2]
+    mean = neigh.mean(dim=-2, keepdim=True)
     centered = neigh - mean
     # Unbiased covariance as sums of elementwise products (no matrix
     # product, so no TF32).
-    C = (centered[:, :, :, None] * centered[:, :, None, :]).sum(dim=1) / (k - 1)
+    C = (centered[..., :, None] * centered[..., None, :]).sum(dim=-3) / (k - 1)
     eigvals, v_min = eigh3x3(C)
     lam_max = eigvals[..., 0]
     safe = torch.where(lam_max > 0, lam_max, torch.ones_like(lam_max))

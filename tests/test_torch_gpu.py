@@ -377,21 +377,24 @@ def test_icp_register_on_the_card(cuda):
 def test_wrappers_check_their_inputs(cuda):
     from simpleicp_tpu_torch.ops import knn_cuda
 
-    q = torch.zeros((4, 3), device=cuda)
+    # the wrappers take the pair axis (knn adds it for one pair)
+    q = torch.zeros((1, 4, 3), device=cuda)
+    with pytest.raises(ValueError):
+        knn_cuda.knn_search_cuda(q[0], q[0], 2)
     with pytest.raises(TypeError):
         knn_cuda.knn_search_cuda(q, q.double(), 2)
     with pytest.raises(ValueError):
-        knn_cuda.knn_search_cuda(q, torch.zeros((4, 6), device=cuda)[:, ::2], 2)
+        knn_cuda.knn_search_cuda(q, torch.zeros((1, 4, 6), device=cuda)[..., ::2], 2)
     with pytest.raises(ValueError):
         knn_cuda.knn_search_cuda(q, q, 65)
     with pytest.raises(ValueError):
-        knn_cuda.match_transform_cuda(q, q, torch.eye(3, device=cuda))
+        knn_cuda.match_transform_cuda(q, q, torch.eye(3, device=cuda)[None])
     with pytest.raises(ValueError):
-        knn_cuda.nn_search_cuda(q, q, torch.ones(5, dtype=torch.bool, device=cuda))
+        knn_cuda.nn_search_cuda(q, q, torch.ones((1, 5), dtype=torch.bool, device=cuda))
     with pytest.raises(TypeError):
-        knn_cuda.nn_search_cuda(q, q, torch.ones(4, device=cuda))
+        knn_cuda.nn_search_cuda(q, q, torch.ones((1, 4), device=cuda))
     with pytest.raises(ValueError):
-        knn_cuda.nn_d2_cuda(q, q, torch.ones(5, dtype=torch.bool, device=cuda))
+        knn_cuda.nn_d2_cuda(q, q, torch.ones((1, 5), dtype=torch.bool, device=cuda))
     with pytest.raises(TypeError):
         knn_cuda.nn_d2_cuda(q, q.double())
 
@@ -620,3 +623,178 @@ def test_warm_start_on_the_card(cuda):
     assert int(g.n_iterations) == int(c.n_iterations)
     assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
     assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
+
+
+# ------------------------------------------------------------- the pair axis
+
+
+def _stacked_rigid(rng, B, dtype, dev):
+    return torch.stack([_rigid(rng, dtype, dev) for _ in range(B)])
+
+
+def _batched_calls(Q, R, H, k, mask=None):
+    """(launch count key, kernel call, plain call, single-pair call of pair
+    b) of each kernel with a pair axis, on (B, q, 3) queries and (B, n, 3)
+    refs (the match under H (B, 4, 4); the 1-NN under ``mask``)."""
+    from simpleicp_tpu_torch.ops import knn
+
+    def m(b):
+        return None if mask is None else mask[b]
+
+    return [
+        ("match_transform", lambda: knn.match_transform(Q, R, H),
+         lambda: knn.match_transform_plain(Q, R, H),
+         lambda b: knn.match_transform(Q[b], R[b], H[b])),
+        ("knn_search", lambda: knn.knn_search(Q, R, k),
+         lambda: knn.knn_search_plain(Q, R, k),
+         lambda b: knn.knn_search(Q[b], R[b], k)),
+        ("nn_search_d2", lambda: (knn.min_dist_sq(Q, R, ref_mask=mask), None),
+         lambda: (knn.nn_search_plain(Q, R, mask)[0], None),
+         lambda b: (knn.min_dist_sq(Q[b], R[b], ref_mask=m(b)), None)),
+        ("nn_search", lambda: knn.nn_search(Q, R, ref_mask=mask),
+         lambda: knn.nn_search_plain(Q, R, mask),
+         lambda b: knn.nn_search(Q[b], R[b], ref_mask=m(b))),
+    ]
+
+
+def _check_batched(Q, R, H, k, mask=None, launches=1):
+    """Each kernel on the batch: ``launches`` launches, bit-equal to its
+    plain version on the batch and to its single-pair launches."""
+    from simpleicp_tpu_torch.ops import knn_cuda
+
+    B = Q.shape[0]
+    for name, kernel, plain, single in _batched_calls(Q, R, H, k, mask):
+        before = knn_cuda.LAUNCHES[name]
+        d, i = kernel()
+        assert knn_cuda.LAUNCHES[name] == before + launches, name
+        torch.cuda.synchronize()
+        dp, ip = plain()
+        assert torch.equal(d, dp), name
+        assert i is None or torch.equal(i, ip), name
+        for b in range(B):
+            d1, i1 = single(b)
+            torch.cuda.synchronize()
+            assert torch.equal(d[b], d1), (name, b)
+            assert i is None or torch.equal(i[b], i1), (name, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("nq,nr", [(1, 1), (7, 130), (1000, 20_000), (2500, 40_000)])
+def test_batched_kernels(cuda, dtype, B, nq, nr):
+    """The match, the k-NN and the 1-NN (both modes) on B independent pairs:
+    one launch for the batch, each pair bit-equal to the plain version and
+    to its own single-pair launch."""
+    rng = np.random.default_rng(B * 1000 + nq + nr)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    Q = T(rng.uniform(-5, 5, (B, nq, 3)))
+    R = T(rng.uniform(-5, 5, (B, nr, 3)))
+    mask = torch.as_tensor(rng.random((B, nr)) < 0.5, device=cuda)
+    _check_batched(Q, R, _stacked_rigid(rng, B, dtype, cuda), min(10, nr))
+    _check_batched(Q, R, _stacked_rigid(rng, B, dtype, cuda), min(40, nr), mask)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nr", [1000, 40_000])
+def test_batched_kernels_pair_offset_trap(cuda, dtype, nr):
+    """Pair b's queries and refs are pair 0's shifted by b x 1e3 along each
+    axis, and its H moves them as pair 0's H moves pair 0's: a pass that
+    reads another pair's refs, H, mask or partials, or writes into another
+    pair's output, gives a d2 of about 1e6 or more, or a wrong index. Query
+    blocks are ragged (2 500 queries). At 1 000 refs the k-NN's plan takes
+    one chunk (the scan writes the result and fills short lists itself), at
+    40 000 several (partials, the merge and the finish passes). Masks: none,
+    half the refs, and a sparse one that leaves pair b only b valid refs, so
+    that lists short of k are filled from the pair's own mask."""
+    from simpleicp_tpu_torch.ops import knn_cuda
+    from simpleicp_tpu_torch.ops.transform import rbp_to_H
+
+    rng = np.random.default_rng(99)
+    B, nq = 8, 2500
+    if nr == 1000:
+        waves = knn_cuda._knn_waves(cuda, dtype, 10)
+        assert knn_cuda._plan_knn_chunks(nq, nr, 10, waves, B)[1] == 1
+    q0, r0 = rng.uniform(-5, 5, (nq, 3)), rng.uniform(-5, 5, (nr, 3))
+    shift = 1e3 * np.arange(B)[:, None, None] * np.ones(3)
+    p = rng.uniform([-0.2] * 3 + [-1.0] * 3, [0.2] * 3 + [1.0] * 3)
+    H0 = rbp_to_H(torch.as_tensor(p)).numpy()
+    H = np.repeat(H0[None], B, axis=0)
+    # R x_b + t_b = R x_0 + t_0 + s_b for x_b = x_0 + s_b
+    H[:, :3, 3] += shift[:, 0] - shift[:, 0] @ H0[:3, :3].T
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    Q, R, Hb = T(q0[None] + shift), T(r0[None] + shift), T(H)
+    half = torch.as_tensor(rng.random((B, nr)) < 0.5, device=cuda)
+    sparse = np.zeros((B, nr), bool)
+    for b in range(B):
+        sparse[b, rng.choice(nr, b, replace=False)] = True
+    for m in (None, half, torch.as_tensor(sparse, device=cuda)):
+        _check_batched(Q, R, Hb, 10, m)
+        for _, kernel, _, _ in _batched_calls(Q, R, Hb, 10, m):
+            d = kernel()[0]
+            # in-pair distances are at most ~300
+            assert float(d[torch.isfinite(d)].max()) < 1e3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_batched_kernels_slices(cuda, dtype, monkeypatch):
+    """A batch above a launch's pair limit goes in slices of pairs, and the
+    1-NN's queries above its query limit in slices of queries, one launch
+    each, with the unsliced result (limits lowered to 3 pairs and 1 024
+    queries)."""
+    from simpleicp_tpu_torch.ops import knn_cuda
+
+    rng = np.random.default_rng(98)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    Q, R = T(rng.uniform(-5, 5, (8, 2100, 3))), T(rng.uniform(-5, 5, (8, 3001, 3)))
+    H = _stacked_rigid(rng, 8, dtype, cuda)
+    mask = torch.as_tensor(rng.random((8, 3001)) < 0.5, device=cuda)
+    whole = [kernel() for _, kernel, _, _ in _batched_calls(Q, R, H, 10, mask)]
+    monkeypatch.setattr(knn_cuda, "_MAX_PAIRS", 3)
+    monkeypatch.setattr(knn_cuda, "_NN_MAX_QUERIES", 1024)
+    for (name, kernel, _, _), (d, i) in zip(_batched_calls(Q, R, H, 10, mask), whole):
+        before = knn_cuda.LAUNCHES[name]
+        ds, is_ = kernel()
+        # 3 slices of pairs; the 1-NN and the match also 3 slices of queries
+        want = 3 if name == "knn_search" else 9
+        assert knn_cuda.LAUNCHES[name] == before + want, name
+        torch.cuda.synchronize()
+        assert torch.equal(ds, d) and (i is None or torch.equal(is_, i)), name
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_icp_register_batch_on_the_card(cuda, gated):
+    """icp_register_batch on the card: one k-NN launch, one match launch
+    per iteration of the batch (and one gate launch, d2-only), and float64
+    on the card equal to float64 on the CPU in iterations, error codes,
+    selection and every iteration's matches, H within 1e-9. Gated, pair 1
+    has no overlap (ERR_NO_OVERLAP, no iteration)."""
+    from simpleicp_tpu_torch import IcpConfig, icp_register_batch
+    from simpleicp_tpu_torch.ops import knn_cuda
+
+    rng = np.random.default_rng(13)
+
+    def surface(n):
+        xy = rng.uniform(-2, 2, (n, 2))
+        return np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+
+    X_fix = np.stack([surface(20000) for _ in range(3)])
+    X_mov = np.stack([surface(20000) + rng.uniform(-0.03, 0.03, 3) for _ in range(3)])
+    kw = dict(max_overlap_distance=0.1) if gated else {}
+    if gated:
+        X_mov[1] += [100.0, 0.0, 0.0]
+    cfg = IcpConfig(correspondences=500, max_iterations=30, record_trajectory=True, **kw)
+
+    def run(device):
+        return icp_register_batch(X_fix, X_mov, cfg, device=device, dtype=torch.float64)
+
+    knn_cuda.reset_launch_counts()
+    g = run(cuda)
+    assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations.max()),
+                                 "knn_search": 1, "nn_search": 0,
+                                 "nn_search_d2": int(gated)}
+    c = run("cpu")
+    for f in ("n_iterations", "error_code", "converged", "sel_idx", "sel_valid", "iter_midx"):
+        assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+    assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
+    if gated:
+        assert g.error_code.tolist() == [0, 1, 0] and int(g.n_iterations[1]) == 0

@@ -299,7 +299,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(knn_cuda, "_resident", lambda dev, dtype, kernel: 528)
     monkeypatch.setattr(knn_cuda, "_knn_waves", lambda dev, dtype, k: 528)
     monkeypatch.setattr(knn_cuda, "_common", lambda q, r: (
-        q.device, q.dtype, knn_cuda._suffix(q.dtype), q.shape[0], r.shape[0]))
+        q.device, q.dtype, knn_cuda._suffix(q.dtype), q.shape[0], q.shape[1], r.shape[1]))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
 
     class _Stream:
@@ -350,3 +350,60 @@ def test_knn_route_launches_once_with_the_plan(fake_card, k):
     tk.knn_search(Q[:64], X[:600], k)
     [(_, args)] = fake_card.calls
     assert args[7] == 1 and args[8] is None and args[9] is None
+
+
+def test_batched_routes_launch_once_for_the_batch(fake_card):
+    """A batch of 3 pairs goes to each kernel in one launch: the pointers
+    of pair 0, the pair count and the pair strides last before the stream,
+    and the chunk plans counting every pair's query blocks."""
+    rng = np.random.default_rng(56)
+    Q = torch.as_tensor(rng.uniform(0, 1, (3, 1000, 3)), dtype=torch.float32)
+    X = torch.as_tensor(rng.uniform(0, 1, (3, 50_000, 3)), dtype=torch.float32)
+    H = torch.eye(4, dtype=torch.float32).repeat(3, 1, 1)
+    d, i = tk.match_transform(Q, X, H)
+    tk.knn_search(Q, X, 10)
+    d2 = tk.min_dist_sq(Q, X)
+    assert knn_cuda.LAUNCHES == {"match_transform": 1, "knn_search": 1,
+                                 "nn_search": 0, "nn_search_d2": 1}
+    (m_name, m), (k_name, k), (n_name, n) = fake_card.calls
+    assert m_name == "simpleicp_match_transform_f32"
+    assert m[:5] == (Q.data_ptr(), 1000, X.data_ptr(), 50_000, H.data_ptr())
+    assert m[5:7] == knn_cuda._plan_nn_chunks(1000, 50_000, 528, 3)
+    assert m[9:11] == (d.data_ptr(), i.data_ptr()) and m[11:14] == (1000, 16, 3)
+    assert k_name == "simpleicp_knn_f32" and k[12] == 3
+    assert k[6:8] == knn_cuda._plan_knn_chunks(1000, 50_000, 10, 528, 3)
+    assert n_name == "simpleicp_nn_d2_f32" and n[9:11] == (1000, 3)
+    assert d.shape == i.shape == d2.shape == (3, 1000)
+
+
+def test_knn_route_slices_a_batch_above_the_launch_refs(fake_card, monkeypatch):
+    """The k-NN's scan indexes a launch's refs, over all its pairs, with
+    int32: a batch with more refs in all goes in slices of whole pairs, each
+    launch from its first pair's pointers (limit lowered to 3 pairs' refs)."""
+    rng = np.random.default_rng(57)
+    Q = torch.as_tensor(rng.uniform(0, 1, (8, 100, 3)), dtype=torch.float32)
+    X = torch.as_tensor(rng.uniform(0, 1, (8, 5000, 3)), dtype=torch.float32)
+    monkeypatch.setattr(knn_cuda, "_KNN_MAX_REFS", 3 * 5000 + 4999)
+    d, i = tk.knn_search(Q, X, 10)
+    assert knn_cuda.LAUNCHES["knn_search"] == 3
+    assert [args[12] for _, args in fake_card.calls] == [3, 3, 2]
+    assert [(args[0], args[2], args[10]) for _, args in fake_card.calls] == [
+        (Q[p].data_ptr(), X[p].data_ptr(), d[p].data_ptr()) for p in (0, 3, 6)]
+
+
+def test_chunk_plans_count_every_pair():
+    """A batch's plan fills the same resident blocks with its pairs' query
+    blocks: more pairs, no more chunks, and whole waves of blocks when it
+    splits the reference axis."""
+    one = knn_cuda._plan_nn_chunks(1000, 100_000, 528)
+    assert one == knn_cuda._plan_nn_chunks(1000, 100_000, 528, 1)
+    prev = one[1]
+    for B in (2, 8, 32, 528):
+        chunk_len, n_chunks = knn_cuda._plan_nn_chunks(1000, 100_000, 528, B)
+        assert n_chunks <= prev and chunk_len * n_chunks >= 100_000
+        if n_chunks > 1:
+            assert (B * n_chunks) % 528 == 0 or B * n_chunks <= 528
+        prev = n_chunks
+    k_one = knn_cuda._plan_knn_chunks(1000, 100_000, 10, 528)
+    k_eight = knn_cuda._plan_knn_chunks(1000, 100_000, 10, 528, 8)
+    assert k_eight[1] <= k_one[1] and k_eight[0] * k_eight[1] >= 100_000

@@ -129,7 +129,8 @@ def test_gate_and_metrics_go_through_min_dist_sq(monkeypatch):
 
 def test_min_dist_sq_launches_the_d2_mode_on_a_card(monkeypatch):
     """On a CUDA tensor min_dist_sq calls the d2-only wrapper with the
-    query, the refs and the mask, and never the index mode. (No card here:
+    query, the refs and the mask (with the pair axis, which the wrappers
+    take), and never the index mode. (No card here:
     the device test is stood in for, the kernel's own test is on the card.)"""
     seen = []
 
@@ -147,7 +148,7 @@ def test_min_dist_sq_launches_the_d2_mode_on_a_card(monkeypatch):
     q, r = _t(rng.uniform(0, 1, (50, 3))), _t(rng.uniform(0, 1, (70, 3)))
     m = _t(rng.random(70) < 0.5)
     got = tk.min_dist_sq(q, r, ref_tile=64, ref_mask=m)
-    assert seen == [((50, 3), (70, 3), True)]
+    assert seen == [((1, 50, 3), (1, 70, 3), True)]
     assert torch.equal(got, tk.nn_search_plain(q, r, m)[0])
 
 
