@@ -41,6 +41,24 @@ Phases, each printing one JSON object on a line of its own:
            (mask equal to the brute 1-NN mask over 1e14 pairs); a 200 000
            pair with the thresholds lowered so that the band-ref compaction
            and the blocked slab join run, masks equal to brute;
+  grid     the grid engines (ops/gridhash.py, PyTorch operations), float32:
+           (a) C=100 000 against a 12.5M-point cloud, match_radius 0.05,
+           near-aligned (the JAX package's grid_tight_radius config):
+           "auto" resolves to the grid matcher; the same iterations as the
+           brute matcher (the match kernel at 1.25e12 pairs a call), H
+           within 1e-6, both recovering the motion to 2e-3; the share of
+           differing last matches, wall times (medians of 3 in turns),
+           the grid build and cap, ms per iteration of each matcher,
+           launches, host reads, device busy (torch.profiler); the k-NN
+           kernel bit-equal to its plain version at 100 000 x 12.5M on
+           1024 sampled rows; (b) gate_method "grid" on the dilate 1.2M
+           pair, every result field equal to the dilate-gated run's, and
+           the grid gate alone at 10M x 10M, mask equal to the dilate
+           gate's; (c) select_in_range at 1.5M x 1.5M (2.25e12 > 2^41
+           pairs, the grid cell list) keeps the brute 1-NN's set; (d)
+           float64 grid matcher (C=2000, radius 0.1) and grid gate at 20k:
+           the card equals the CPU in iterations, selection and last
+           matches, H within 1e-9;
   cli      python3 -m simpleicp_tpu_torch on a gated 100 000-point xyz pair,
            as a subprocess on the card: its lines and its exported cloud;
   serve    the serving path, float32 on the card: prepare_fixed once on a
@@ -104,7 +122,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "scale", "gated", "dilate",
-          "cli", "serve", "batch", "times", "profile")
+          "grid", "cli", "serve", "batch", "times", "profile")
 KERNELS = ("match_transform", "knn_search", "nn_search", "dilate")
 SOURCES = {
     "match_transform": "simpleicp_tpu_torch/csrc/knn.cu",
@@ -190,14 +208,15 @@ def rotation(a):
     return R
 
 
-def cloud_pair(n, seed, area_scale=1.0):
+def cloud_pair(n, seed, area_scale=1.0, motion=None):
     """Fixed cloud and an independent sample of the same surface moved by
-    the known motion; area_scale widens the domain at constant density."""
+    ``motion`` ((R, t), by default the known motion); area_scale widens the
+    domain at constant density."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     half = 2.0 * math.sqrt(area_scale)
-    R, t = known_motion()
+    R, t = motion or known_motion()
     X_fix = surface(rng, n, half)
     X_mov = (surface(rng, n, half) - t) @ R
     return X_fix, X_mov, t
@@ -990,9 +1009,9 @@ def phase_dilate(torch, cmp):
     plan = plan_of(Xm0)
     cfg = icp._resolve_engines(IcpConfig(max_overlap_distance=GATE_RADIUS),
                                N_DILATE, N_DILATE)
-    plan_r = icp._resolve_gate(cfg, N_DILATE, N_DILATE,
-                               lambda: dg.bbox_of(Xm0).cpu().numpy())
-    check(plan_r is not None and plan_r == plan,
+    method, plan_r = icp._resolve_gate(cfg, N_DILATE, N_DILATE,
+                                       lambda: dg.bbox_of(Xm0).cpu().numpy())
+    check(method == "dilate" and plan_r == plan,
           f"gate_method 'auto' at {N_DILATE} x {N_DILATE} did not plan the dilate gate")
     alone = gate_vs_brute(torch, Xf, Xm0, plan, "dilate 1.2M")
     n0 = len(cmp.cases)
@@ -1055,7 +1074,270 @@ def phase_dilate(torch, cmp):
                                     (st["sweep"] == "slab join" and st["slab_blocks"] > 1)),
               f"forced {label}: the branch did not run ({st})")
     emit({"phase": "dilate", "part": "c", "float32_200k_forced": forced})
-    return {"launches": launches, "clouds": (X_fix, X_mov), "clouds10M": (A10, B10)}
+    return {"launches": launches, "clouds": (X_fix, X_mov), "clouds10M": (A10, B10),
+            "brute_mask_10M_s": big["brute_mask_s"]}
+
+
+# The grid engines. (a) The JAX package's big-C configuration
+# (``grid_tight_radius`` of scripts/bench_bigc.py: C=100 000 against a
+# 12.5M-point cloud, match_radius 0.05, the coarsely pre-aligned production
+# scans of BENCHMARKS.md) on the wavy surface at the density of every other
+# cloud here (12.5M points over 125 times the 100k cell's area), under the
+# near alignment such scans arrive with; (b) the grid gate on the dilate
+# cells' pairs; (c) select_in_range above 2^41 pairs; (d) float64 on the
+# card against the CPU.
+N_BIGC = 12_500_000
+C_BIGC = 100_000
+BIGC_RADIUS = 0.05
+BIGC_T = (0.012, -0.008, 0.010)
+BIGC_ANGLES = (1e-4, -1e-4, 2e-4)
+N_SELECT = 1_500_000
+BIGC_KNN_ROWS = 1024
+
+
+def check_knn_rows(torch, cmp, Q, X, k, tag):
+    """The k-NN kernel on all rows of Q against X; a seeded sample of
+    BIGC_KNN_ROWS rows (the last 256 among them) held against the plain
+    version, indices equal and d2 bit-equal. Returns (the cases, the
+    kernel's ms and its bound at this shape)."""
+    import numpy as np
+
+    from simpleicp_tpu_torch.ops import knn
+
+    n0 = len(cmp.cases)
+    n_q = Q.shape[0]
+    rows = np.random.default_rng(SEED + 13).choice(n_q - 256, BIGC_KNN_ROWS - 256,
+                                                   replace=False)
+    rows = torch.as_tensor(np.concatenate([rows, np.arange(n_q - 256, n_q)]), device=Q.device)
+    d_k, i_k = knn.knn_search(Q, X, k)
+    torch.cuda.synchronize()
+    d_p, i_p = knn.knn_search_plain(Q[rows].contiguous(), X, k)
+    torch.cuda.synchronize()
+    cmp.record("knn_search", f"float32 {tag} {n_q}x{X.shape[0]}, {rows.shape[0]} rows, k={k}",
+               d_k[rows], i_k[rows], d_p, i_p)
+    b, by = bound_ms("knn_search", n_q, X.shape[0], 4, k=k)
+    return cmp.since(n0), {"ms": cuda_ms(torch, lambda: knn.knn_search(Q, X, k), 2),
+                           "bound_ms": b, "bound_by": by, "shape": [n_q, X.shape[0], k]}
+
+
+def mean_occupancy(grid):
+    """Points per occupied hash slot of a ``build_sorted_grid`` grid."""
+    slots = grid[1]
+    return slots.shape[0] / (int((slots[1:] != slots[:-1]).sum()) + 1)
+
+
+def match_ms(torch, Q, Xm, cfg, H):
+    """ms of one iteration's matcher (``_make_match_fn`` of the resolved
+    ``cfg``, CUDA events over 5 calls) under the transform H, and for the
+    grid matcher its one-time build (with its cap's count and host read)."""
+    from simpleicp_tpu_torch.models import icp
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn = icp._make_match_fn(Q[None], Xm[None], cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    Ht = H[None].to(Q.dtype)
+    return {"ms": cuda_ms(torch, lambda: fn(Ht), 5), "set_up_s": build_s}
+
+
+def phase_grid(torch, cmp, dil=None):
+    """The grid engines on the card, float32: (a) the big-C grid matcher
+    against the brute matcher at C=100 000 x 12.5M, with the k-NN kernel
+    held against its plain version at that shape; (b) the grid gate on the
+    dilate 1.2M pair (a registration, against the dilate gate's) and alone
+    at 10M x 10M (its mask against the dilate gate's); (c) select_in_range
+    above 2^41 pairs against the brute mask; (d) float64 on the card
+    against the CPU at 20k. Returns each kernel's launches in the
+    grid-matched registration."""
+    import dataclasses
+
+    import numpy as np
+
+    from simpleicp_tpu_torch import IcpConfig, PointCloud, api
+    from simpleicp_tpu_torch.models import icp
+    from simpleicp_tpu_torch.models.icp import _icp_register
+    from simpleicp_tpu_torch.ops import gridhash, knn
+    from simpleicp_tpu_torch.ops.dilate_gate import overlap_mask_dilate
+
+    t_phase = time.perf_counter()
+    dev, f32 = torch.device("cuda"), torch.float32
+    none = {"match_transform": 0, "knn_search": 0, "nn_search": 0, "nn_search_d2": 0,
+            "dilate": 0}
+
+    def register(A, B, cfg, device=dev, dtype=f32):
+        return _icp_register(
+            A, B, cfg, rbp_observed_values=None, rbp_observation_weights=None,
+            normals_fix=None, planarity_fix=None, planarity_mov=None,
+            fixed_prep=None, device=device, dtype=dtype)
+
+    # (a) the big-C grid matcher
+    motion = (rotation(np.array(BIGC_ANGLES)), np.array(BIGC_T))
+    X_fix, X_mov, t = cloud_pair(N_BIGC, SEED + 9, N_BIGC / N_MAIN, motion)
+    Xf = torch.as_tensor(X_fix, dtype=f32, device=dev)
+    Xm = torch.as_tensor(X_mov, dtype=f32, device=dev)
+    del X_fix, X_mov
+    cfg = IcpConfig(correspondences=C_BIGC, match_radius=BIGC_RADIUS)
+    resolved = icp._resolve_engines(cfg, N_BIGC, N_BIGC)
+    check(resolved.match_method == "grid",
+          f"match_method 'auto' at {C_BIGC} x {N_BIGC} resolved to {resolved.match_method}")
+    brute_cfg = dataclasses.replace(cfg, match_method="brute")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built, occupancy = gridhash.grid_build_cap(Xm, BIGC_RADIUS)
+    occupancy = int(occupancy)
+    build_s = time.perf_counter() - t0
+    mean_occ = mean_occupancy(built)
+    del built
+    torch.cuda.reset_peak_memory_stats()
+    (grid, grid_c), grid_s, grid_l, grid_reads = timed(torch, lambda: register(Xf, Xm, cfg))
+    grid_peak = torch.cuda.max_memory_allocated()
+    (brute, brute_c), brute_s, brute_l, brute_reads = timed(
+        torch, lambda: register(Xf, Xm, brute_cfg))
+    n_it = int(grid.n_iterations)
+    check(grid_l == {**none, "knn_search": 1},
+          f"big-C grid run launched {grid_l}, expected one k-NN and no match")
+    check(brute_l == {**none, "knn_search": 1, "match_transform": int(brute.n_iterations)},
+          f"big-C brute run launched {brute_l}")
+    check(n_it == int(brute.n_iterations),
+          f"big-C: {n_it} grid iterations against {int(brute.n_iterations)} brute")
+    dH = float((grid.H - brute.H).abs().max())
+    check(dH <= 1e-6, f"big-C: grid H is {dH} from the brute H (> 1e-6)")
+    check(torch.equal(grid.sel_idx, brute.sel_idx), "big-C: the selections differ")
+    differ = int((grid_c.m_idx != brute_c.m_idx).sum())
+    Q = Xf[grid.sel_idx.long()].contiguous()
+    part_a = {
+        "n_fix": N_BIGC, "n_mov": N_BIGC, "correspondences": C_BIGC,
+        "match_radius": BIGC_RADIUS, "motion": {"t": list(BIGC_T), "angles": list(BIGC_ANGLES)},
+        "resolved": "grid", "n_iterations": n_it, "H_max_abs_diff": dH,
+        "translation_err": {"grid": check_recovery(grid, t, "big-C grid"),
+                            "brute": check_recovery(brute, t, "big-C brute")},
+        "last_matches_differ": differ, "last_matches_differ_share": differ / C_BIGC,
+        "grid_build": {"s": build_s, "occupancy": occupancy,
+                       "cap": -(-occupancy // 8) * 8, "mean_occupancy": mean_occ},
+        "first_run_s": {"grid": grid_s, "brute": brute_s},
+        "host_reads": {"grid": grid_reads, "brute": brute_reads},
+        "launches": {"grid": grid_l, "brute": brute_l},
+        "grid_max_memory_allocated": grid_peak,
+        "match_per_iteration": {
+            "grid": match_ms(torch, Q, Xm, resolved, grid.H),
+            "brute": match_ms(torch, Q, Xm, brute_cfg, grid.H)},
+        "times": compare_runs(torch, {"grid": lambda: register(Xf, Xm, cfg),
+                                      "brute": lambda: register(Xf, Xm, brute_cfg)}),
+    }
+    part_a["kernel_vs_plain"], part_a["knn_at_this_shape"] = check_knn_rows(
+        torch, cmp, Q, Xf, cfg.neighbors, "big-C normals")
+    del Xf, Xm, Q, grid, brute, grid_c, brute_c
+    grid_launches = grid_l
+    emit({"phase": "grid", "part": "a", "big_c": part_a})
+
+    # (b) the grid gate: a 1.2M registration against the dilate gate's, and
+    # the gate alone at 10M x 10M
+    A, B = dil["clouds"] if dil else partial_pair(N_DILATE, SEED + 8, N_DILATE / N_MAIN)[:2]
+    x0 = -math.sqrt(N_DILATE / N_MAIN)
+    Af = torch.as_tensor(A, dtype=f32, device=dev)
+    Bf = torch.as_tensor(B, dtype=f32, device=dev)
+    gcfg = IcpConfig(max_overlap_distance=GATE_RADIUS, gate_method="grid")
+    acfg = IcpConfig(max_overlap_distance=GATE_RADIUS)
+    (g, _), _, g_l, g_reads = timed(torch, lambda: register(Af, Bf, gcfg))
+    (d, _), _, d_l, _ = timed(torch, lambda: register(Af, Bf, acfg))
+    check(d_l["dilate"] >= 1, f"grid 1.2M: 'auto' did not run the dilate gate ({d_l})")
+    check(g_l == {**none, "knn_search": 1, "match_transform": int(g.n_iterations)},
+          f"grid-gated 1.2M launched {g_l}")
+    check_same_result(torch, g, d, "grid-gated 1.2M against the dilate-gated run")
+    part_b = {"radius": GATE_RADIUS, "registration_1.2M": {
+        "n_iterations": int(g.n_iterations),
+        "translation_err": check_recovery(g, known_motion()[1], "grid-gated 1.2M"),
+        "selected_x_min": check_overlap(g, A, x0, "grid-gated 1.2M"),
+        "equals_dilate_run": "every field", "launches": {"grid": g_l, "dilate": d_l},
+        "host_reads": g_reads,
+        "times": compare_runs(torch, {"grid": lambda: register(Af, Bf, gcfg),
+                                      "dilate": lambda: register(Af, Bf, acfg)})}}
+    del Af, Bf, g, d
+    A10, B10 = (dil["clouds10M"] if dil
+                else partial_pair(N_DILATE_BIG, SEED + 9, N_DILATE_BIG / N_MAIN)[:2])
+    Xf, Xm0 = gate_inputs(torch, A10, B10)
+    plan10 = plan_of(Xm0)
+    r = torch.tensor(GATE_RADIUS, dtype=f32, device=dev)
+    stages = {"mean_occupancy": mean_occupancy(gridhash.build_sorted_grid(Xm0, GATE_RADIUS))}
+
+    def grid_gate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid, cap = icp._grid_with_cap(Xm0, GATE_RADIUS, 0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d2, _ = gridhash.grid_query_sorted(Xf, grid[0], grid[1], grid[3], GATE_RADIUS,
+                                           cell_cap=cap, run_end=grid[4])
+        mask = d2 <= r ** 2
+        torch.cuda.synchronize()
+        stages.update(build_and_cap_s=t1 - t0, query_s=time.perf_counter() - t1, cap=cap)
+        return mask
+
+    torch.cuda.reset_peak_memory_stats()
+    rows, masks = timed_runs(torch, {
+        "grid": grid_gate,
+        "dilate": lambda: overlap_mask_dilate(Xf, Xm0, GATE_RADIUS, plan10)}, 2)
+    differ = int((masks["grid"][-1] != masks["dilate"][-1]).sum())
+    check(differ == 0, f"grid gate 10M: the mask differs from the dilate mask at {differ} points")
+    part_b["gate_alone_10M"] = {
+        "n_fix": N_DILATE_BIG, "n_mov": N_DILATE_BIG, "kept": int(masks["grid"][-1].sum()),
+        "mask_differs_from_dilate": differ, "grid_stages": stages, "times": rows,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "brute_mask_s_this_run": dil and dil["brute_mask_10M_s"]}
+    del Xf, Xm0, masks
+    emit({"phase": "grid", "part": "b", "grid_gate": part_b})
+
+    # (c) select_in_range above 2^41 pairs (2.25e12)
+    S_fix, S_mov, _, _ = partial_pair(N_SELECT, SEED + 11, N_SELECT / N_MAIN)
+    check(N_SELECT * N_SELECT > api._SELECT_BRUTE_PAIRS,
+          "select_in_range case at or below its brute limit (2^41 pairs)")
+    pc = PointCloud(S_fix)
+    t0 = time.perf_counter()
+    pc.select_in_range(S_mov, GATE_RADIUS)
+    select_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d2 = knn.min_dist_sq(torch.as_tensor(S_fix, dtype=f32, device=dev),
+                         torch.as_tensor(S_mov, dtype=f32, device=dev))
+    brute_keep = np.flatnonzero(d2.cpu().numpy() <= float(GATE_RADIUS) ** 2)
+    brute_sel_s = time.perf_counter() - t0
+    same = np.array_equal(pc.idx_selected, brute_keep)
+    check(same, f"select_in_range above 2^41: {len(pc.idx_selected)} kept against "
+          f"{len(brute_keep)} by the brute mask")
+    part_c = {"n_selected": N_SELECT, "n_ref": N_SELECT, "pairs": N_SELECT * N_SELECT,
+              "radius": GATE_RADIUS, "kept": int(len(brute_keep)), "equals_brute_mask": same,
+              "grid_s": select_s, "brute_s": brute_sel_s}
+    emit({"phase": "grid", "part": "c", "select_in_range": part_c})
+    del pc, d2
+
+    # (d) float64, the card against the CPU
+    F_fix, F_mov, _ = cloud_pair(N_GATE_F64, SEED + 14, N_GATE_F64 / N_MAIN)
+    P_fix, P_mov, _, _ = partial_pair(N_GATE_F64, SEED + 15, N_GATE_F64 / N_MAIN)
+    part_d = {}
+    for label, (A, B, c) in {
+            "grid_matcher": (F_fix, F_mov, IcpConfig(correspondences=2000, match_radius=0.1,
+                                                     match_method="grid")),
+            "grid_gate": (P_fix, P_mov, IcpConfig(max_overlap_distance=GATE_RADIUS,
+                                                  gate_method="grid"))}.items():
+        (on, on_c), _, on_l, _ = timed(torch, lambda: register(A, B, c, dtype=torch.float64))
+        off, off_c = register(A, B, c, device="cpu", dtype=torch.float64)
+        what = f"float64 {label} 20k card vs CPU"
+        engine_kernel = "match_transform" if label == "grid_matcher" else "nn_search_d2"
+        check(on_l[engine_kernel] == 0 and on_l["knn_search"] == 1,
+              f"{what}: launched {on_l}")
+        check(int(on.n_iterations) == int(off.n_iterations), f"{what}: iterations differ")
+        check(torch.equal(on.sel_idx.cpu(), off.sel_idx), f"{what}: selections differ")
+        check(torch.equal(on_c.m_idx.cpu(), off_c.m_idx), f"{what}: last matches differ")
+        dH = float((on.H.cpu() - off.H).abs().max())
+        check(dH <= 1e-9, f"{what}: H differs by {dH} (> 1e-9)")
+        part_d[label] = {"n_iterations": int(on.n_iterations), "H_max_abs_diff": dH,
+                         "launches": on_l}
+    emit({"phase": "grid", "part": "d", "float64_card_vs_cpu": part_d,
+          "phase_s": time.perf_counter() - t_phase})
+    return grid_launches
+
+
 
 
 def phase_cli(torch):
@@ -2097,6 +2379,7 @@ def main(argv=None) -> int:
     gated_launches, gated_big = (phase_gated(torch, cmp) if "gated" in phases
                                  else (None, None))
     dil = phase_dilate(torch, cmp) if "dilate" in phases else None
+    grid = phase_grid(torch, cmp, dil) if "grid" in phases else None
     errs = cmp.err if "kernels" in phases else None
     if "cli" in phases:
         phase_cli(torch)
@@ -2116,7 +2399,9 @@ def main(argv=None) -> int:
         # a prepared registration's matches, and the gated warm start's
         # 1-NN and dilation; and on the batch path (batch_launches): the
         # B=8 batches' match, k-NN and 1-NN (the dilate gate is refused in
-        # batch mode).
+        # batch mode); and on the grid path (grid_launches): the big-C
+        # grid-matched registration's k-NN (its matcher and gate are the
+        # grid engines, PyTorch operations).
         modes = {"d2_only": gated_launches["nn_search_d2"], "index": gated_launches["nn_search"]}
         launches = {**main_info[0], "nn_search": sum(modes.values()),
                     "dilate": dil["launches"]["dilate"]}
@@ -2131,7 +2416,8 @@ def main(argv=None) -> int:
              **({**{k: times[name][k] for k in nn_keys}, "launches_by_mode": modes}
                 if name == "nn_search" else {}),
              **({} if serve is None else {"serve_launches": serve[name]}),
-             **({} if batch is None else {"batch_launches": batch.get(name, 0)})}
+             **({} if batch is None else {"batch_launches": batch.get(name, 0)}),
+             **({} if grid is None else {"grid_launches": grid.get(name, 0)})}
             for name in KERNELS
         ]})
     check("jax" not in sys.modules, "JAX was imported during the run")

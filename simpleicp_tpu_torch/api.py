@@ -32,8 +32,8 @@ from .utils.xyz_io import read_xyz, write_correspondences_xyz, write_xyz
 
 _log = get_logger(__name__)
 
-# Above this many query x reference pairs the JAX package's
-# select_in_range switches to its grid cell list, which is not ported.
+# Above this many query x reference pairs select_in_range switches to the
+# grid cell list, as in the JAX package.
 _SELECT_BRUTE_PAIRS = 2**41
 
 
@@ -191,21 +191,22 @@ class PointCloud:
                         device: DeviceLike = None,
                         dtype: Optional[torch.dtype] = None) -> None:
         """Keep the selected points whose nearest neighbour in X lies within
-        max_range (the brute 1-NN: the 1-NN kernel on the card)."""
+        max_range: the brute 1-NN (the 1-NN kernel on the card), and above
+        2^41 pairs the grid cell list (its cell cap counted on the host),
+        as in the JAX package; both give the same mask."""
+        from .ops.gridhash import grid_cell_cap, min_dist_sq_grid
         from .ops.knn import min_dist_sq
 
         X = np.asarray(X)
         if X.ndim != 2 or X.shape[1] != 3:
             raise PointCloudException("X must have 3 columns!")
         queries = self.X_selected
-        if queries.shape[0] * X.shape[0] > _SELECT_BRUTE_PAIRS:
-            raise icp_core.not_ported(
-                f"select_in_range over {queries.shape[0]} x {X.shape[0]} pairs "
-                "(above 2^41 the JAX package uses its grid cell list)",
-                icp_core.ITEM_GRID,
-            )
         dev, dtype = resolve(device, dtype)
-        d2 = min_dist_sq(_tensor(queries, dev, dtype), _tensor(X, dev, dtype))
+        q, r = _tensor(queries, dev, dtype), _tensor(X, dev, dtype)
+        if queries.shape[0] * X.shape[0] > _SELECT_BRUTE_PAIRS:
+            d2 = min_dist_sq_grid(q, r, max_range, cell_cap=grid_cell_cap(X, max_range))
+        else:
+            d2 = min_dist_sq(q, r)
         keep = d2.cpu().numpy() <= float(max_range) ** 2
         idx_new = self.idx_selected[keep]
         self.unselect_all_points()
@@ -307,10 +308,11 @@ class SimpleICP:
         translation is observed). ``warm_start`` runs a coarse
         registration of subsampled clouds first and starts the full run
         from its result (``IcpConfig.warm_start``); ``approx_knn`` runs the
-        exact k-NN, as the JAX package does off the TPU. Settings that are
-        not ported yet raise NotImplementedError naming their ROADMAP item:
-        ``mesh`` and ``num_devices`` (sharded runs), ``dispatch="chunked"``,
-        and the grid gate and matcher engines.
+        exact k-NN, as the JAX package does off the TPU; the grid gate and
+        matcher run as the config resolves them. Settings that are not
+        ported yet raise NotImplementedError naming their ROADMAP item:
+        ``mesh`` and ``num_devices`` (sharded runs) and
+        ``dispatch="chunked"``.
 
         Returns:
             (H, X_mov_transformed, rbp, distance_residuals)

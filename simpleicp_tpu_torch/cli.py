@@ -9,7 +9,7 @@ max_overlap_distance disables the gate", the ``--preset`` table and the
 ``cpu``, with no ``auto`` routing and no health probe, so there is no
 ``--probe-timeout``; ``--dtype`` chooses float32 (the default) or float64.
 Flags whose values are not ported yet fail with their ROADMAP item:
-``--num-devices``, ``--dispatch chunked`` and the grid engines.
+``--num-devices`` and ``--dispatch chunked``.
 """
 
 from __future__ import annotations
@@ -110,13 +110,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--gate-method", choices=("auto", "brute", "grid", "dilate"),
         default="auto",
         help="overlap-gate engine: auto is the brute 1-NN gate up to 2^40 "
-             "fixed x movable pairs and the dilate gate above; grid is not "
-             "ported yet",
+             "fixed x movable pairs, the dilate gate above when its grid "
+             "fits, else brute up to 2^41 pairs and the grid gate above",
     )
     p.add_argument(
         "--match-method", choices=("auto", "brute", "grid"), default="auto",
-        help="in-loop matcher: auto picks brute below 2^38 matched pairs per "
-             "iteration; grid is not ported yet",
+        help="in-loop matcher: auto picks brute up to 2^38 matched pairs per "
+             "iteration, and the static-grid matcher above when a radius is "
+             "set",
     )
     p.add_argument(
         "--match-radius", type=float, default=0.0,

@@ -57,13 +57,17 @@ class IcpConfig:
             is on. "brute" is the 1-NN gate; "dilate" the dilated-occupancy
             gate (the same mask, for large clouds); "auto" resolves as in
             the JAX package: brute up to 2^40 fixed x movable pairs, dilate
-            above when its grid fits, else brute up to 2^41 pairs. "grid",
-            and "auto" above 2^41 pairs without a dilate plan, are not
-            ported yet and raise.
+            above when its grid fits, else brute up to 2^41 pairs and
+            "grid" above. "grid" is the spatial-hash cell list
+            (``ops/gridhash.py``); ``grid_cell_cap`` is its cell cap (0:
+            counted from the cloud).
         match_method: in-loop matcher. "auto" resolves as in the JAX
             package: "brute", or "grid" above 2^38 pairs per iteration when
-            a radius is available; "grid" is not ported yet and raises.
-        match_radius / match_cell_cap: grid matcher settings (not ported).
+            a radius is available. "grid" is the static-grid matcher: one
+            cell list over the untransformed movable cloud, exact within
+            the radius; rows whose nearest point lies farther are dropped.
+        match_radius / match_cell_cap: the grid matcher's radius (0: the
+            gate's) and cell cap (0: counted from the cloud).
         program_budget_s: TPU watchdog guard of the JAX package. No effect
             in this package (there is no program watchdog on the GPU).
         dispatch: "auto" resolves to "monolithic" here; "chunked" is not

@@ -7,14 +7,19 @@ Pipeline of ``icp_register``:
      brute gate takes the 1-NN of every fixed point (the 1-NN kernel on the
      card); the dilate gate (``gate_method="dilate"``, and ``"auto"`` above
      2^40 pairs) classifies them on a dilated occupancy grid (the dilate
-     kernel on the card) and resolves only a thin band exactly; both give
-     the same mask;
+     kernel on the card) and resolves only a thin band exactly; the grid
+     gate (``gate_method="grid"``, and ``"auto"`` above 2^41 pairs without
+     a dilate plan) scans the 27 hash cells around each fixed point
+     (``ops/gridhash.py``); all three give the same mask;
   3. fixed-count selection: round(linspace) over the indices of the fixed
      points (of the survivors when gated);
   4. normals: the user's, gathered at the selection, or k-NN neighbourhoods
      (the k-NN kernel on the card) and the closed-form 3x3 eigensolver;
   5. iterate: fused transform + 1-NN match (the match kernel on the card,
-     over the untransformed movable cloud) -> planarity gate (both clouds
+     over the untransformed movable cloud; or the static-grid matcher,
+     ``match_method="grid"``, and ``"auto"`` above 2^38 pairs per iteration
+     with a radius: one cell list over the untransformed movable cloud,
+     queried with the back-transformed fixed points) -> planarity gate (both clouds
      when the movable cloud carries planarity) -> median/MAD rejection ->
      Gauss-Newton solve -> convergence on the mean/std change;
   6. a-posteriori uncertainties.
@@ -33,8 +38,9 @@ gives the full run its initial parameters (``plan_warm_start``).
 The loop runs on the host and keeps its state on the device; it reads one
 flag back per ICP iteration (converged or failed) and one per Gauss-Newton
 step, for the whole batch, and the gate reads back each pair's number of
-survivors (the dilate gate also its bounding box and band;
-``utils/sync.py`` counts them). Its results equal those of the JAX
+survivors (the dilate gate also its bounding box and band; a grid engine
+resolving its cell cap on the device one occupancy; ``utils/sync.py``
+counts them). Its results equal those of the JAX
 package's ``lax.while_loop`` field for field: the state it keeps on an
 error, the iteration it stops at, the buffers it fills.
 """
@@ -51,6 +57,12 @@ import torch
 
 from ..config import IcpConfig
 from ..ops.dilate_gate import bbox_of, overlap_mask_dilate, plan_dilate_gate
+from ..ops.gridhash import (
+    build_sorted_grid,
+    grid_build_cap,
+    grid_cell_cap,
+    grid_query_sorted,
+)
 from ..ops.knn import knn_search, match_transform, min_dist_sq
 from ..ops.normals import estimate_normals_from_neighborhoods
 from ..ops.stats import masked_mad, masked_mean, masked_median, masked_std, pct_change
@@ -62,7 +74,7 @@ from ..ops.transform import (
 )
 from ..utils.device import resolve
 from ..utils.sync import read_array, read_flag
-from .solver import estimate_uncertainties, gn_solve, linearized_solve
+from .solver import estimate_uncertainties, gn_solve, host_rotation, linearized_solve
 
 # Error codes of IcpResult.error_code.
 ERR_OK = 0
@@ -73,7 +85,7 @@ ERR_TOO_FEW_CORRESPONDENCES = 2
 # gate, as in the JAX package; above it the dilate gate is planned.
 GATE_AUTO_BRUTE_PAIRS = 2**40
 # Without a dilate plan, "auto" stays the brute gate up to this many pairs;
-# above it the JAX package picks the grid gate, which is not ported.
+# above it the grid gate, as in the JAX package.
 GATE_AUTO_GRID_PAIRS = 2**41
 # match_method="auto" picks the grid matcher above this many pairs per
 # iteration when a radius is available, as in the JAX package.
@@ -233,10 +245,12 @@ def _rows(X: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(X, 1, flat).reshape(*idx.shape, *X.shape[2:])
 
 
-def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig):
+def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig, mov_host=None, obs_host=None):
     """Overlap gate and fixed-count selection of one pair (Xf (nf, 3), Xm
     (nm, 3), H0 (4, 4)) or of B pairs (Xf (B, nf, 3), Xm (B, nm, 3), H0 (B,
-    4, 4); the brute gate only).
+    4, 4); the brute gate only). ``mov_host`` is the movable cloud when it
+    came as a numpy array and ``obs_host`` the observed values H0 comes
+    from: the grid gate counts its cell cap on the host from them.
 
     Returns (sel_idx (..., C), sel_valid (..., C), error) with error a host
     int32 array, () or (B,), of ERR_OK or ERR_NO_OVERLAP."""
@@ -247,13 +261,23 @@ def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig):
         return (*_ungated_selection(nf, C, dev, lead), np.full(lead, ERR_OK, np.int32))
     # The initial transform applies before the gate. One transformed cloud
     # serves the dilate gate's bounding box, its occupancy and its exact
-    # sweeps, so its mask is the brute gate's bit for bit.
+    # sweeps, and the grid gate's cell list, so their masks are the brute
+    # gate's bit for bit.
     Xm0 = apply_H(Xm, H0)
-    plan = _resolve_gate(cfg, nf, Xm.shape[-2], lambda: read_array(bbox_of(Xm0)))
-    if plan is not None:
+    method, plan = _resolve_gate(cfg, nf, Xm.shape[-2], lambda: read_array(bbox_of(Xm0)))
+    if method == "dilate":
         sel_mask = overlap_mask_dilate(Xf, Xm0, cfg.max_overlap_distance, plan)
     else:
-        d2 = min_dist_sq(Xf, Xm0)
+        if method == "grid":
+            X_host = (None if mov_host is None or cfg.grid_cell_cap
+                      else _initial_moved_host(mov_host, obs_host))
+            grid, cap = _grid_with_cap(Xm0, cfg.max_overlap_distance,
+                                       cfg.grid_cell_cap, X_host)
+            d2, _ = grid_query_sorted(Xf, grid[0], grid[1], grid[3],
+                                      cfg.max_overlap_distance, cell_cap=cap,
+                                      run_end=grid[4])
+        else:
+            d2 = min_dist_sq(Xf, Xm0)
         # The radius is cast to the coordinate dtype before it is squared.
         r = torch.tensor(cfg.max_overlap_distance, dtype=Xf.dtype, device=dev)
         sel_mask = d2 <= r ** 2
@@ -283,16 +307,79 @@ def _normals_stage(Q, Xf, sel_idx, normals_fix, planarity_fix, *,
     return normals, planarity
 
 
-def _make_match_fn(Q, Xm):
+def _initial_moved_host(X_mov: np.ndarray, obs) -> np.ndarray:
+    """The movable cloud under the initial transform of the observed values
+    ``obs`` (None: none), on the host in float64: the cloud the grid gate
+    counts its cell cap on, as the JAX package does."""
+    X = np.asarray(X_mov, np.float64)
+    p = None if obs is None else _host_f64(obs)
+    if p is None or not np.any(p):
+        return X
+    return X @ host_rotation(*p[:3]).T + p[3:6]
+
+
+def _grid_with_cap(X: torch.Tensor, radius: float, cap: int, X_host=None):
+    """The sorted grid of one cloud X (n, 3) at ``radius`` and its cell
+    cap, resolved as the JAX package resolves it: ``cap`` when it is set;
+    else, for a cloud that came as numpy (``X_host``, its points on the host),
+    ``grid_cell_cap`` (counted in both dtypes, plus 4); else the occupancy
+    counted on X's device, rounded up to a multiple of 8, in one host read.
+    Returns (the ``build_sorted_grid`` 5-tuple, cap)."""
+    if cap or X_host is not None:
+        return (build_sorted_grid(X, radius),
+                cap or grid_cell_cap(X_host, radius))
+    grid, occupancy = grid_build_cap(X, radius)
+    return grid, -(-int(read_array(occupancy)) // 8) * 8
+
+
+def _make_match_fn(Q, Xm, cfg: IcpConfig, mov_host=None):
     """The per-iteration matcher of B pairs: match_fn(Ht (B, 4, 4)) ->
     (m_idx, m_t, m_orig, m_valid). The match kernel takes the untransformed
     clouds and Ht, one launch for the batch, so the moved clouds are never
-    materialized; only the C matched rows of each are moved."""
+    materialized; only the C matched rows of each are moved. The grid
+    matcher (one pair; ``mov_host``: the movable cloud when it came as
+    numpy) is ``_make_grid_match_fn``."""
+    if cfg.match_method == "grid":
+        return _make_grid_match_fn(Q, Xm, cfg, mov_host)
+
     def match_fn(Ht):
         _, m_idx = match_transform(Q, Xm, Ht)
         m_orig = _rows(Xm, m_idx)
         m_valid = torch.ones(m_idx.shape, dtype=torch.bool, device=m_idx.device)
         return m_idx, apply_H(m_orig, Ht), m_orig, m_valid
+
+    return match_fn
+
+
+def _make_grid_match_fn(Q, Xm, cfg: IcpConfig, mov_host=None):
+    """The static-grid matcher of one pair (Q (1, C, 3), Xm (1, nm, 3)):
+    ONE cell list over the untransformed movable cloud serves every
+    iteration. Rigid motion preserves distances, so the nearest of the
+    moved points H x to q is the nearest point x to H^-1 q = R^T (q - t).
+    Exact within the match radius (``match_radius``, else the gate's):
+    a row whose nearest point lies farther is dropped (``m_valid``) with
+    index 0. With the linearized solver H is only nearly orthogonal, so
+    near-ties can resolve otherwise than the brute matcher's."""
+    rm = cfg.match_radius if cfg.match_radius > 0 else cfg.max_overlap_distance
+    X_host = None if cfg.match_cell_cap else mov_host
+    grid, cap = _grid_with_cap(Xm[0], rm, cfg.match_cell_cap, X_host)
+    g_pts, g_slots, g_order, g_origin, g_run_end = grid
+    r = torch.tensor(rm, dtype=Xm.dtype, device=Xm.device)
+    q = Q[0]
+
+    def match_fn(Ht):
+        H = Ht[0]
+        d = q - H[:3, 3]
+        # R^T (q - t) as explicit multiply-adds (no matrix product: TF32
+        # never touches a coordinate).
+        qb = torch.stack([(d[:, 0] * H[0, j] + d[:, 1] * H[1, j]) + d[:, 2] * H[2, j]
+                          for j in range(3)], dim=-1)
+        d2, pos = grid_query_sorted(qb, g_pts, g_slots, g_origin, r, cell_cap=cap,
+                                    run_end=g_run_end)
+        m_valid = d2 <= r * r
+        m_idx = torch.where(m_valid, g_order[pos], 0).to(torch.int32)[None]
+        m_orig = _rows(Xm, m_idx)
+        return m_idx, apply_H(m_orig, Ht), m_orig, m_valid[None]
 
     return match_fn
 
@@ -541,9 +628,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-ITEM_GRID = "item 11 (gridhash)"
-
-
 def _resolve_engines(cfg: IcpConfig, nf: int, nm: int) -> IcpConfig:
     """The configuration with its matcher, gate and dispatch resolved as the
     JAX package resolves them off the TPU. Every setting this package does
@@ -557,50 +641,37 @@ def _resolve_engines(cfg: IcpConfig, nf: int, nm: int) -> IcpConfig:
         has_radius = cfg.match_radius > 0 or cfg.overlap_enabled
         big = cfg.correspondences * nm > MATCH_AUTO_PAIR_BUDGET
         match = "grid" if (big and has_radius) else "brute"
-        if match == "grid":
-            raise not_ported(
-                f"match_method='auto' at {cfg.correspondences} x {nm} pairs "
-                "per iteration (the grid matcher)", ITEM_GRID)
-    if match == "grid":
-        raise not_ported("match_method='grid'", ITEM_GRID)
     gate = cfg.gate_method
-    if cfg.overlap_enabled:
-        if gate == "grid":
-            raise not_ported("gate_method='grid'", ITEM_GRID)
-        if gate == "auto" and nf * nm <= GATE_AUTO_BRUTE_PAIRS:
-            gate = "brute"
-        # "dilate", and "auto" above 2^40 pairs, are resolved by the plan
-        # (_resolve_gate), which needs the transformed cloud's bounding box.
+    if cfg.overlap_enabled and gate == "auto" and nf * nm <= GATE_AUTO_BRUTE_PAIRS:
+        gate = "brute"
+    # "dilate", and "auto" above 2^40 pairs, are resolved by the plan
+    # (_resolve_gate), which needs the transformed cloud's bounding box.
     return dataclasses.replace(cfg, match_method=match, gate_method=gate,
                                dispatch="monolithic")
 
 
 def _resolve_gate(cfg: IcpConfig, nf: int, nm: int, bbox_fn):
-    """The dilate plan of an enabled gate whose method ``_resolve_engines``
-    resolved, or None for the brute gate, as the JAX package resolves it:
-    "brute" stays; "dilate", and "auto" (above 2^40 pairs), plan the dilate
-    gate over the bounding box ``bbox_fn()`` gives ((2, 3) lo/hi rows, read
-    from the device once). Without a plan, "dilate" raises the JAX
-    package's ValueError and "auto" becomes the brute gate up to 2^41 pairs
-    and the grid gate above, which raises."""
+    """(method, dilate plan or None) of an enabled gate whose method
+    ``_resolve_engines`` resolved, as the JAX package resolves it: "brute"
+    and "grid" stay; "dilate", and "auto" (above 2^40 pairs), plan the
+    dilate gate over the bounding box ``bbox_fn()`` gives ((2, 3) lo/hi
+    rows, read from the device once). Without a plan, "dilate" raises the
+    JAX package's ValueError and "auto" becomes the brute gate up to 2^41
+    pairs and the grid gate above."""
     gate = cfg.gate_method
-    if gate == "brute":
-        return None
+    if gate in ("brute", "grid"):
+        return gate, None
     lo, hi = bbox_fn()
     plan = plan_dilate_gate(None, None, cfg.max_overlap_distance, bbox=(lo, hi))
     if plan is not None:
-        return plan
+        return "dilate", plan
     if gate == "dilate":
         raise ValueError(
             "gate_method='dilate' needs a dense cell grid over the "
             "joint bounding box; this cloud pair exceeds the cell "
             "budget — use 'grid' or 'auto'."
         )
-    if nf * nm > GATE_AUTO_GRID_PAIRS:
-        raise not_ported(
-            f"gate_method='auto' at {nf} x {nm} pairs with no dilate plan "
-            "(the JAX package picks the grid gate)", ITEM_GRID)
-    return None
+    return ("grid" if nf * nm > GATE_AUTO_GRID_PAIRS else "brute"), None
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:
@@ -936,8 +1007,11 @@ def icp_register(
         X_fix: (nf, 3) fixed cloud (numpy array or tensor).
         X_mov: (nm, 3) movable cloud.
         cfg: pipeline configuration. Settings this package does not run yet
-            raise NotImplementedError; none is ignored. ``warm_start=True``
-            runs a coarse registration first (``plan_warm_start``).
+            (chunked dispatch) raise NotImplementedError; none is ignored.
+            ``warm_start=True`` runs a coarse registration first
+            (``plan_warm_start``). The grid engines count their cell caps
+            on the host for a numpy movable cloud and on its device for a
+            tensor (one host read each), as the JAX package does.
         rbp_observed_values: (6,) observed parameter values, angles in
             radians; they also give the initial transform.
         rbp_observation_weights: (6,) weights; 0 free, finite > 0 observed,
@@ -975,6 +1049,9 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
     """``icp_register``, also returning the loop's final state (whose
     ``m_idx`` holds the last iteration's matches)."""
     dev, dtype = resolve(device, dtype)
+    # A movable cloud that came as numpy has the grid engines count their
+    # cell caps on the host, as in the JAX package; a tensor, on its device.
+    mov_host = X_mov if isinstance(X_mov, np.ndarray) else None
     Xf = _as_tensor(X_fix, dtype, dev)
     Xm = _as_tensor(X_mov, dtype, dev)
     if Xf.dim() != 2 or Xf.shape[1] != 3 or Xm.dim() != 2 or Xm.shape[1] != 3:
@@ -1014,7 +1091,8 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
     Xf1, Xm1 = Xf[None], Xm[None]
     if fixed_prep is None:
         sel_idx, sel_valid, error0 = (
-            x[None] for x in _gate_select_stages(Xf, Xm, H0, cfg=cfg))
+            x[None] for x in _gate_select_stages(Xf, Xm, H0, cfg=cfg, mov_host=mov_host,
+                                                 obs_host=rbp_observed_values))
         Q = _rows(Xf1, sel_idx)
         if normals_fix is not None:
             normals_fix, planarity_fix = normals_fix[None], planarity_fix[None]
@@ -1031,7 +1109,8 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
 
     final, uncertainties, covariance = run_icp_loop(
         Q, normals, planarity, sel_valid, obs_vals[None], obs_w[None], cfg, dtype,
-        error0, H0[None], _make_match_fn(Q, Xm1), lambda m_idx: _rows(Xm1, m_idx),
+        error0, H0[None], _make_match_fn(Q, Xm1, cfg, mov_host),
+        lambda m_idx: _rows(Xm1, m_idx),
         mov_planarity_fn=mov_planarity_fn,
     )
     result = _result_from_carry(
@@ -1123,7 +1202,7 @@ def icp_register_batch(
     normals, planarity = _normals_stage(Q, Xf, sel_idx, None, None, cfg=cfg)
     final, uncertainties, covariance = run_icp_loop(
         Q, normals, planarity, sel_valid, obs_vals, obs_w, cfg, dtype,
-        error0, H0, _make_match_fn(Q, Xm), lambda m_idx: _rows(Xm, m_idx),
+        error0, H0, _make_match_fn(Q, Xm, cfg), lambda m_idx: _rows(Xm, m_idx),
     )
     return _result_from_carry(final, uncertainties, covariance, sel_idx,
                               sel_valid, normals, planarity)

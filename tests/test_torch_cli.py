@@ -101,7 +101,6 @@ def test_cli_float32_and_log_lines(xyz_pair, caplog):
 UNPORTED_FLAGS = {
     "num_devices": (["--num-devices", "2"], "item 14"),
     "chunked": (["--dispatch", "chunked"], "item 12"),
-    "gate_grid": (["-o", "0.5", "--gate-method", "grid"], "item 11"),
 }
 
 
@@ -113,21 +112,24 @@ def test_unported_flags_fail_with_their_roadmap_item(xyz_pair, name):
         main(["-f", str(f1), "-m", str(f2), "--quiet", "--device", "cpu", *flags])
 
 
-SERVING_FLAGS = {
+PORTED_FLAGS = {
     "warm_start": ["--warm-start", "--warm-start-points", "1000",
                    "--warm-start-correspondences", "200"],
     "approx_knn": ["--approx-knn"],
+    "gate_grid": ["--gate-method", "grid"],
+    "match_grid": ["--match-method", "grid"],
 }
 
 
-@pytest.mark.parametrize("name", list(SERVING_FLAGS))
+@pytest.mark.parametrize("name", list(PORTED_FLAGS))
 def test_serving_flags_equal_the_jax_cli(xyz_pair, name):
     """--warm-start (the 2500-point clouds above the lowered
-    --warm-start-points, so the coarse pass runs) and --approx-knn run: the
-    exported cloud equals the JAX CLI's with the same flags."""
+    --warm-start-points, so the coarse pass runs), --approx-knn and the grid
+    engines (--gate-method grid, --match-method grid with the gate's radius)
+    run: the exported cloud equals the JAX CLI's with the same flags."""
     d, f1, f2 = xyz_pair
     common = ["-f", str(f1), "-m", str(f2), "-o", "0.25", "-c", "300", "--quiet",
-              "--device", "cpu", *SERVING_FLAGS[name]]
+              "--device", "cpu", *PORTED_FLAGS[name]]
     assert jax_main(common + ["--export", str(d / f"jax_{name}.xyz")]) == 0
     assert main(common + ["--dtype", "float64", "--export", str(d / f"port_{name}.xyz")]) == 0
     np.testing.assert_allclose(read_xyz(d / f"port_{name}.xyz"),

@@ -73,8 +73,6 @@ def test_config_from_dict_round_trip():
 _X = np.random.default_rng(0).uniform(0, 1, (50, 3))
 
 UNPORTED = {
-    "grid_matcher": (dict(match_method="grid", match_radius=0.5), {}),
-    "grid_gate": (dict(max_overlap_distance=1.0, gate_method="grid"), {}),
     "chunked": (dict(dispatch="chunked"), {}),
 }
 
@@ -93,6 +91,8 @@ PORTED = {
     "overlap_gate": (dict(max_overlap_distance=1.0), {}),
     "dilate_gate": (dict(max_overlap_distance=1.0, gate_method="dilate"), {}),
     "record_trajectory": (dict(record_trajectory=True), {}),
+    "grid_matcher": (dict(match_method="grid", match_radius=0.5), {}),
+    "grid_gate": (dict(max_overlap_distance=1.0, gate_method="grid"), {}),
     "normals_fix": ({}, dict(normals_fix=_N)),
     "planarity_fix": ({}, dict(normals_fix=_N, planarity_fix=np.ones(50))),
     "planarity_mov": ({}, dict(planarity_mov=np.ones(50))),
@@ -101,7 +101,8 @@ PORTED = {
 
 @pytest.mark.parametrize("name", list(PORTED))
 def test_ported_settings_run(name):
-    """Settings that the first slice refused and the gated slice runs."""
+    """Settings that the first slice refused and later slices run (the
+    gated slice; the grid engines)."""
     cfg_kw, call_kw = PORTED[name]
     res = icp_register(_X, _X + 0.01, IcpConfig(correspondences=10, **cfg_kw),
                        device="cpu", **call_kw)

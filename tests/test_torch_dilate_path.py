@@ -77,7 +77,8 @@ def test_auto_above_2_40_pairs_runs_the_dilate_gate(monkeypatch):
 def test_gate_resolution_as_in_jax():
     """_resolve_gate: brute reads no box; dilate and auto plan over the box;
     with no plan, dilate raises the JAX package's ValueError and auto is the
-    brute gate up to 2^41 pairs and the unported grid gate above."""
+    brute gate up to 2^41 pairs and the grid gate above; grid reads no box
+    either."""
     cfg = IcpConfig(max_overlap_distance=0.1)
     box = (np.zeros(3), np.full(3, 4.0))
     huge = (np.zeros(3), np.full(3, 1e5))
@@ -85,17 +86,17 @@ def test_gate_resolution_as_in_jax():
     def no_read():
         raise AssertionError("the brute gate reads no bounding box")
 
-    assert icp._resolve_gate(dataclasses.replace(cfg, gate_method="brute"),
-                             2**30, 2**30, no_read) is None
+    for method in ("brute", "grid"):
+        assert icp._resolve_gate(dataclasses.replace(cfg, gate_method=method),
+                                 2**30, 2**30, no_read) == (method, None)
     for method in ("dilate", "auto"):
-        plan = icp._resolve_gate(dataclasses.replace(cfg, gate_method=method),
-                                 2**20, 2**20 + 1, lambda: box)
-        assert plan is not None
+        resolved, plan = icp._resolve_gate(dataclasses.replace(cfg, gate_method=method),
+                                           2**20, 2**20 + 1, lambda: box)
+        assert resolved == "dilate"
         assert plan == dilate_gate.plan_dilate_gate(None, None, 0.1, bbox=box)
     auto = dataclasses.replace(cfg, gate_method="auto")
-    assert icp._resolve_gate(auto, 2**20, 2**21, lambda: huge) is None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        icp._resolve_gate(auto, 2**20, 2**21 + 1, lambda: huge)
+    assert icp._resolve_gate(auto, 2**20, 2**21, lambda: huge) == ("brute", None)
+    assert icp._resolve_gate(auto, 2**20, 2**21 + 1, lambda: huge) == ("grid", None)
     with pytest.raises(ValueError, match="needs a dense cell grid"):
         icp._resolve_gate(dataclasses.replace(cfg, gate_method="dilate"), 10, 10,
                           lambda: huge)

@@ -2,11 +2,9 @@
 random valid configs of tests/test_fuzz.py must never give a NaN transform
 or crash on the CPU. Each config also runs through the JAX package, and
 the port must agree with it: the same error code and iteration count, and
-H within 1e-9 in float64 (the tolerance of tests/test_torch_icp.py).
-Configs that pick an engine the port does not run yet (the grid gate or
-matcher) must raise NotImplementedError naming ROADMAP item 11; they then
-run with the brute engine in its place, in both packages, and are held to
-the same agreement.
+H within 1e-9 in float64 (the tolerance of tests/test_torch_icp.py). Every
+engine a config picks runs in both packages as drawn: the grid gate and the
+grid matcher included.
 """
 
 import dataclasses
@@ -59,13 +57,6 @@ def _case(seed):
 def test_random_config_never_nan(seed):
     X1, X2, jcfg, obs = _case(seed)
     cfg = config_from_dict(dataclasses.asdict(jcfg))
-    if cfg.match_method == "grid" or (cfg.overlap_enabled and cfg.gate_method == "grid"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            icp_register(X1, X2, cfg, device="cpu", dtype=torch.float64, **obs)
-        brute = {f: "brute" for f in ("match_method", "gate_method")
-                 if getattr(cfg, f) == "grid"}
-        jcfg = dataclasses.replace(jcfg, **brute)
-        cfg = dataclasses.replace(cfg, **brute)
     res = icp_register(X1, X2, cfg, device="cpu", dtype=torch.float64, **obs)
     err = int(res.error_code)
     if err == ERR_OK:

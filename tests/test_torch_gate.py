@@ -281,24 +281,40 @@ def test_gate_reads_back_one_count():
     assert sync.host_reads() == ungated + 1
 
 
-RAISES = {
-    # (config, clouds' sizes, ROADMAP item named)
-    "gate_grid": (dict(max_overlap_distance=1.0, gate_method="grid"), (50, 50), "item 11"),
-    # above 2^41 pairs with no dilate plan (the box is 10^4 radii wide),
-    # "auto" is the JAX package's grid gate
-    "auto_grid_no_plan": (dict(max_overlap_distance=1e-4), (2**21, 2**20 + 1), "item 11"),
-    "match_auto_grid": (dict(max_overlap_distance=1.0, correspondences=2**22),
-                        (50, 2**17), "item 11"),
-}
+def test_grid_gate_runs_and_matches_jax():
+    """gate_method="grid" (refused before the grid engines were ported):
+    the JAX package's grid-gated run within this file's tolerances."""
+    X_fix, X_mov, _ = _pair(608, n=1200)
+    jcfg = JaxConfig(correspondences=150, max_overlap_distance=0.2, gate_method="grid")
+    jres, tres, last = _run_both(jcfg, X_fix, X_mov)
+    _assert_parity(jres, tres, last)
+    assert int(tres.error_code) == 0
 
 
-@pytest.mark.parametrize("name", list(RAISES))
-def test_unported_engines_raise(name):
-    kw, (nf, nm), item = RAISES[name]
-    rng = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError, match=item):
-        icp_register(rng.uniform(0, 1, (nf, 3)), rng.uniform(0, 1, (nm, 3)),
-                     IcpConfig(**kw), device="cpu")
+def test_auto_gate_resolves_to_grid_without_a_plan():
+    """Above 2^41 pairs with no dilate plan (the box is 10^9 radii wide),
+    "auto" is the grid gate, as in the JAX package; below, the brute gate.
+    Only the sizes are given: no cloud is allocated."""
+    from simpleicp_tpu_torch.models import icp
+
+    huge = (np.zeros(3), np.full(3, 1e5))
+    cfg = icp._resolve_engines(IcpConfig(max_overlap_distance=1e-4), 2**21, 2**20 + 1)
+    assert cfg.gate_method == "auto"
+    assert icp._resolve_gate(cfg, 2**21, 2**20 + 1, lambda: huge) == ("grid", None)
+    assert icp._resolve_gate(cfg, 2**21, 2**20, lambda: huge) == ("brute", None)
+
+
+def test_auto_matcher_resolves_to_grid_above_2_38_pairs():
+    """match_method="auto" with a radius is the grid matcher above 2^38
+    pairs per iteration (C=2^22 against 2^17 movable points is 2^39), as in
+    the JAX package; without a radius, or at 2^38, the brute matcher."""
+    from simpleicp_tpu_torch.models import icp
+
+    cfg = IcpConfig(max_overlap_distance=1.0, correspondences=2**22)
+    assert icp._resolve_engines(cfg, 50, 2**17).match_method == "grid"
+    assert icp._resolve_engines(cfg, 50, 2**16).match_method == "brute"
+    ungated = IcpConfig(correspondences=2**22)
+    assert icp._resolve_engines(ungated, 50, 2**17).match_method == "brute"
 
 
 def test_auto_gate_resolves_to_brute_up_to_2_40_pairs(monkeypatch):
@@ -313,6 +329,6 @@ def test_auto_gate_resolves_to_brute_up_to_2_40_pairs(monkeypatch):
     big = icp._resolve_engines(cfg, 2**20, 2**20 + 1)
     assert big.gate_method == "auto"
     box = (np.zeros(3), np.full(3, 30.0))
-    plan = icp._resolve_gate(big, 2**20, 2**20 + 1, lambda: box)
-    assert plan is not None and plan == plan_dilate_gate(None, None, 1.0, bbox=box)
+    method, plan = icp._resolve_gate(big, 2**20, 2**20 + 1, lambda: box)
+    assert method == "dilate" and plan == plan_dilate_gate(None, None, 1.0, bbox=box)
     assert icp._resolve_engines(IcpConfig(), 2**30, 2**30).gate_method == "auto"

@@ -798,3 +798,104 @@ def test_icp_register_batch_on_the_card(cuda, gated):
     assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
     if gated:
         assert g.error_code.tolist() == [0, 1, 0] and int(g.n_iterations[1]) == 0
+
+
+def _grid_clouds(dtype, dev, seed=31):
+    rng = np.random.default_rng(seed)
+    refs = np.concatenate([rng.uniform(0, 10, (30_000, 3)), rng.normal(5.0, 0.1, (2000, 3))])
+    queries = rng.uniform(-2, 12, (5003, 3))
+    return (torch.as_tensor(refs, dtype=dtype, device=dev),
+            torch.as_tensor(queries, dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grid_ops_on_the_card_equal_the_cpu(cuda, dtype):
+    """The grid engines are PyTorch operations: on the card they give the
+    CPU's bits (the sort, every position and index, d2, certificates)."""
+    from simpleicp_tpu_torch.ops import gridhash as tg
+
+    refs, queries = _grid_clouds(dtype, cuda)
+    r = 0.5
+    cap = tg.grid_cell_cap(refs.cpu().numpy(), r)
+    on = tg.build_sorted_grid(refs, r)
+    off = tg.build_sorted_grid(refs.cpu(), r)
+    for a, b in zip(on, off):
+        assert torch.equal(a.cpu(), b)
+    for with_run_end in (True, False):
+        got = tg.grid_query_sorted(queries, on[0], on[1], on[3], r, cell_cap=cap,
+                                   run_end=on[4] if with_run_end else None)
+        want = tg.grid_query_sorted(queries.cpu(), off[0], off[1], off[3], r, cell_cap=cap,
+                                    run_end=off[4] if with_run_end else None)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    got = tg.knn_query_sorted(queries, *on[:4], r, 10, cell_cap=cap, run_end=on[4])
+    want = tg.knn_query_sorted(queries.cpu(), *off[:4], r, 10, cell_cap=cap, run_end=off[4])
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    grid, occ = tg.grid_build_cap(refs, r)
+    assert occ.device == refs.device and int(occ) + 4 <= cap
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grid_d2_equals_the_nn_kernel(cuda, dtype):
+    """Within the radius the grid's d2 is the 1-NN kernel's bit for bit (the
+    same elementwise order), so the grid gate's mask is the brute gate's."""
+    from simpleicp_tpu_torch.ops import gridhash as tg
+    from simpleicp_tpu_torch.ops import knn
+
+    refs, queries = _grid_clouds(dtype, cuda, seed=32)
+    r = 0.3
+    cap = tg.grid_cell_cap(refs.cpu().numpy(), r)
+    d2, idx = tg.nn_within_radius_grid(queries, refs, r, cell_cap=cap)
+    kd, ki = knn.nn_search(queries, refs)
+    torch.cuda.synchronize()
+    rr = torch.tensor(r, dtype=dtype, device=cuda)
+    inside = kd <= rr * rr
+    assert torch.equal(d2 <= rr * rr, inside) and 0 < int(inside.sum()) < len(queries)
+    assert torch.equal(d2[inside], kd[inside]) and torch.equal(idx[inside], ki[inside])
+
+
+@pytest.mark.parametrize("engine", ["grid_matcher", "grid_gate"])
+def test_grid_engines_icp_register_on_the_card(cuda, engine):
+    """A grid-matched or grid-gated registration on the card: float64 equal
+    to the CPU in iterations, selection and last matches, H within 1e-9; the
+    grid matcher launches no match kernel, the grid gate no 1-NN; a tensor
+    cloud's cell cap is one host read."""
+    from simpleicp_tpu_torch import IcpConfig
+    from simpleicp_tpu_torch.models.icp import _icp_register
+    from simpleicp_tpu_torch.ops import knn_cuda
+    from simpleicp_tpu_torch.utils import sync
+
+    rng = np.random.default_rng(13)
+
+    def surface(n, lo, hi):
+        xy = np.column_stack([rng.uniform(lo, hi, n), rng.uniform(-2, 2, n)])
+        return np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+
+    X_fix, X_mov = surface(20000, -2, 2), surface(20000, -1, 3) + [0.02, -0.01, 0.01]
+    kw = (dict(match_method="grid", match_radius=0.1) if engine == "grid_matcher"
+          else dict(max_overlap_distance=0.1, gate_method="grid"))
+    cfg = IcpConfig(correspondences=2000, max_iterations=30, **kw)
+
+    def run(device, X):
+        return _icp_register(
+            X_fix, X, cfg, rbp_observed_values=None, rbp_observation_weights=None,
+            normals_fix=None, planarity_fix=None, planarity_mov=None, fixed_prep=None,
+            device=device, dtype=torch.float64)
+
+    knn_cuda.reset_launch_counts()
+    g, gc = run(cuda, X_mov)
+    n_it = int(g.n_iterations)
+    want = {"match_transform": 0 if engine == "grid_matcher" else n_it, "knn_search": 1,
+            "nn_search": 0, "nn_search_d2": 0}
+    assert knn_cuda.LAUNCHES == want
+    c, cc = run("cpu", X_mov)
+    assert n_it == int(c.n_iterations) and int(g.error_code) == int(c.error_code) == 0
+    assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
+    assert torch.equal(gc.m_idx.cpu(), cc.m_idx)
+    assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
+    sync.reset_host_reads()
+    run(cuda, X_mov)
+    from_numpy = sync.host_reads()
+    sync.reset_host_reads()
+    t = run(cuda, torch.as_tensor(X_mov, device=cuda))[0]
+    assert sync.host_reads() == from_numpy + 1
+    assert torch.equal(t.H, g.H)

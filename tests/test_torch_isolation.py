@@ -21,6 +21,7 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys; import simpleicp_tpu_torch, simpleicp_tpu_torch.ops.knn, "
         "simpleicp_tpu_torch.ops.dilate_gate, simpleicp_tpu_torch.ops.dilate_cuda, "
+        "simpleicp_tpu_torch.ops.gridhash, "
         "simpleicp_tpu_torch.models.icp, simpleicp_tpu_torch.utils.xyz_io, "
         "simpleicp_tpu_torch.cli, simpleicp_tpu_torch.metrics; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -53,7 +54,7 @@ def _port_sources():
 def test_sources_name_no_jax():
     files = _port_sources()
     names = {f.name for f in files}
-    assert {"knn.cu", "dilate.cu", "dilate_gate.py", "dilate_cuda.py"} <= names
+    assert {"knn.cu", "dilate.cu", "dilate_gate.py", "dilate_cuda.py", "gridhash.py"} <= names
     jax_import = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     jax_pkg = re.compile(r"simpleicp_tpu(?!_torch)\b")
     for f in files:

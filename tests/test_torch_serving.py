@@ -361,7 +361,6 @@ def test_preparation_on_another_device_is_refused():
 # keep raising their ROADMAP item.
 UNPORTED = {
     "chunked": (dict(dispatch="chunked", chunk_iterations=2), "item 12"),
-    "grid_matcher": (dict(match_method="grid", match_radius=0.5), "item 11"),
 }
 
 
@@ -373,3 +372,24 @@ def test_unported_prepared_cases_raise(name):
     prep = prepare_fixed(Xf, cfg, **F64)
     with pytest.raises(NotImplementedError, match=item):
         icp_register(Xf, Xm, dataclasses.replace(cfg, **kw), fixed_prep=prep, **F64)
+
+
+def test_prepared_grid_matcher_equals_self_contained_and_jax():
+    """The grid matcher on the prepared path (refused before the grid
+    engines were ported): bit-equal to the self-contained grid-matched run,
+    and equal to the JAX package's prepared grid-matched run (iterations,
+    selection; H within 1e-9)."""
+    Xf, Xm = _pair(24, 2000, 2000)
+    cfg = IcpConfig(correspondences=200)
+    grid = dataclasses.replace(cfg, match_method="grid", match_radius=0.5)
+    prep = prepare_fixed(Xf, cfg, **F64)
+    prepared = icp_register(Xf, Xm, grid, fixed_prep=prep, **F64)
+    _assert_bitequal(prepared, icp_register(Xf, Xm, grid, **F64))
+    jgrid = JaxConfig(correspondences=200, match_method="grid", match_radius=0.5)
+    jres = jax_register(Xf, Xm, jgrid, dtype=jnp.float64,
+                        fixed_prep=jax_prepare_fixed(Xf, JaxConfig(correspondences=200),
+                                                     dtype=jnp.float64))
+    assert int(prepared.error_code) == int(jres.error_code) == 0
+    assert int(prepared.n_iterations) == int(jres.n_iterations)
+    np.testing.assert_array_equal(prepared.sel_idx.numpy(), np.asarray(jres.sel_idx))
+    np.testing.assert_allclose(prepared.H.numpy(), np.asarray(jres.H), rtol=0, atol=1e-9)

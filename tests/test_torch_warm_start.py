@@ -300,29 +300,15 @@ def test_warm_start_chunked_dispatch_raises_its_item():
     dict(match_method="grid", match_radius=0.2),
     dict(max_overlap_distance=0.1, gate_method="grid"),
 ], ids=["grid_matcher", "grid_gate"])
-def test_warm_start_unported_engine_raises_before_the_coarse_pass(grid, monkeypatch):
-    """A full-pass setting this package does not run yet (the grid matcher
-    or gate, item 11) raises before the warm start's coarse pass runs: no
-    registration starts and no match or k-NN is computed."""
-    calls = []
-
-    def refuse(name):
-        def spy(*args, **kwargs):
-            calls.append(name)
-            raise AssertionError(f"{name} ran before the refusal")
-        return spy
-
-    for name in ("icp_register", "plan_warm_start", "_gate_select_stages",
-                 "_normals_stage", "run_icp_loop", "knn_search", "match_transform",
-                 "min_dist_sq"):
-        monkeypatch.setattr(icp_core, name, refuse(name))
+def test_warm_start_with_a_grid_full_pass_matches_jax(grid):
+    """A warm start whose full pass runs a grid engine (refused before the
+    grid engines were ported): the coarse pass keeps its brute matcher and
+    "auto" gate, the full pass the grid engine, and the run equals the JAX
+    package's (iterations, selection; H within 1e-9)."""
     X_fix, X_mov, _ = _dependent_pair(14, 2000)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        icp_core._icp_register(
-            X_fix, X_mov, IcpConfig(warm_start=True, warm_start_points=500, **grid),
-            rbp_observed_values=None, rbp_observation_weights=None, normals_fix=None,
-            planarity_fix=None, planarity_mov=None, fixed_prep=None, **F64)
-    assert calls == []
+    jres, tres = _both(X_fix, X_mov, dict(warm_start=True, warm_start_points=500, **grid))
+    _assert_matches_jax(jres, tres)
+    assert int(tres.error_code) == 0
 
 
 def test_warm_start_cli_flag():
