@@ -59,6 +59,25 @@ Phases, each printing one JSON object on a line of its own:
            float64 grid matcher (C=2000, radius 0.1) and grid gate at 20k:
            the card equals the CPU in iterations, selection and last
            matches, H within 1e-9;
+  chunked  chunked dispatch, float32, every run equal in every result field
+           and its last matches to the same registration run monolithically:
+           100k (default config) at K = 1, 3 and max_iterations, the gated
+           100k pair and the dilate 1.2M pair at K = 2, with launches and
+           host reads against the monolithic run; big-C (the grid phase's
+           C=100 000 x 12.5M pair) under a program_budget_s computed from
+           the ported card rates so that the planner chooses chunked
+           dispatch, query blocks and the grid k-NN cascade, K = 1: the plan,
+           the cascade's radii, cap and rows certified, regridded and
+           patched, its normals bit-equal to the dense k-NN's and timed
+           against it (CUDA events, medians of 3 in turns), the wall time
+           against the monolithic run (medians of 3); prepare_fixed at
+           big-C under that budget equal to the dense preparation;
+  policy   the rates of utils/device_policy.py measured again (the card's
+           sweep, k-NN, gather and sort rates at 100 000 x 5M, the host
+           CPU's plain 1-NN, k-NN and match at 2000 x 200 000, the card's
+           one-time cost in a fresh process), each constant within a factor
+           of 2 of its measurement; the CLI with --device auto routing a
+           5 000-point pair to the CPU and a 1M pair to the card;
   cli      python3 -m simpleicp_tpu_torch on a gated 100 000-point xyz pair,
            as a subprocess on the card: its lines and its exported cloud;
   serve    the serving path, float32 on the card: prepare_fixed once on a
@@ -122,7 +141,7 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "scale", "gated", "dilate",
-          "grid", "cli", "serve", "batch", "times", "profile")
+          "grid", "chunked", "policy", "cli", "serve", "batch", "times", "profile")
 KERNELS = ("match_transform", "knn_search", "nn_search", "dilate")
 SOURCES = {
     "match_transform": "simpleicp_tpu_torch/csrc/knn.cu",
@@ -1134,7 +1153,8 @@ def match_ms(torch, Q, Xm, cfg, H):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn = icp._make_match_fn(Q[None], Xm[None], cfg)
+    grid = icp._match_grid(Xm, cfg) if cfg.match_method == "grid" else None
+    fn = icp._make_match_fn(Q[None], Xm[None], cfg, grid=grid)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     Ht = H[None].to(Q.dtype)
@@ -1149,7 +1169,7 @@ def phase_grid(torch, cmp, dil=None):
     at 10M x 10M (its mask against the dilate gate's); (c) select_in_range
     above 2^41 pairs against the brute mask; (d) float64 on the card
     against the CPU at 20k. Returns each kernel's launches in the
-    grid-matched registration."""
+    grid-matched registration, and the big-C clouds on the card."""
     import dataclasses
 
     import numpy as np
@@ -1227,6 +1247,7 @@ def phase_grid(torch, cmp, dil=None):
     }
     part_a["kernel_vs_plain"], part_a["knn_at_this_shape"] = check_knn_rows(
         torch, cmp, Q, Xf, cfg.neighbors, "big-C normals")
+    bigc = (Xf, Xm)  # for the chunked phase
     del Xf, Xm, Q, grid, brute, grid_c, brute_c
     grid_launches = grid_l
     emit({"phase": "grid", "part": "a", "big_c": part_a})
@@ -1335,9 +1356,394 @@ def phase_grid(torch, cmp, dil=None):
                          "launches": on_l}
     emit({"phase": "grid", "part": "d", "float64_card_vs_cpu": part_d,
           "phase_s": time.perf_counter() - t_phase})
-    return grid_launches
+    return grid_launches, bigc
 
 
+
+
+# Chunked dispatch: K iterations a call, each run against the same
+# registration run monolithically; the big-C pair under a budget that
+# makes the card-priced planner choose chunked, query blocks and the grid
+# k-NN cascade.
+CHUNK_KS = (1, 3)
+
+
+class LogLines:
+    """The messages ``models/icp.py``'s logger emits at ``level`` or above
+    inside a ``with`` block (the plan and cascade lines)."""
+
+    def __init__(self, level):
+        import logging
+
+        self.level, self.lines = level, []
+        self.log = logging.getLogger("simpleicp_tpu_torch.models.icp")
+        self.handler = logging.Handler(level)
+        self.handler.emit = lambda rec: self.lines.append(rec.getMessage())
+
+    def __enter__(self):
+        self.old = self.log.level
+        self.log.addHandler(self.handler)
+        self.log.setLevel(self.level)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self.handler)
+        self.log.setLevel(self.old)
+
+
+def cascade_rows(lines):
+    """The grid k-NN cascade's radii, cap and rows from its log lines:
+    certified in round 1, sent to round 2 (regridded) and patched by the
+    dense k-NN."""
+    import re
+
+    out = {"regridded": 0, "dense_patched": 0}
+    for ln in lines:
+        m = re.search(r"r=(\S+), r_hi=(\S+), cap (\d+): (\d+)/\d+ certified", ln)
+        if m:
+            out.update(r=float(m[1].rstrip(",")), r_hi=float(m[2].rstrip(",")),
+                       cap=int(m[3]), certified_round1=int(m[4]))
+        m = re.search(r"(\d+)/\d+ uncertified at r=\S+ -> regrid", ln)
+        if m:
+            out["regridded"] = int(m[1])
+        m = re.search(r"(\d+)/\d+ uncertified rows -> dense recompute", ln)
+        if m:
+            out["dense_patched"] = int(m[1])
+    return out
+
+
+def chunk_budget(n, C, cap):
+    """A program_budget_s under which the planner chooses chunked dispatch,
+    query blocks and the grid k-NN cascade for a C x n grid-matched
+    registration, and prepare_fixed query blocks and the cascade, from the
+    ported card rates: 0.8 of the k-NN's estimate (below the whole run's).
+    Returns (budget, the stage estimates)."""
+    from simpleicp_tpu_torch.utils import device_policy as dp
+
+    gate_s, knn_s, build_s, per_iter = dp.estimate_gpu_stage_seconds(
+        n, n, correspondences=C, match_method="grid", match_cell_cap=cap)
+    est = gate_s + knn_s + build_s + 10 * per_iter
+    budget = 0.8 * min(est, knn_s)
+    atom = max(gate_s + build_s, per_iter, knn_s * 2048 / C)
+    check(atom < 0.9 * budget, f"big-C: no budget splits the run (atom {atom} s)")
+    return budget, {"gate_s": gate_s, "knn_s": knn_s, "build_s": build_s,
+                    "per_iteration_s": per_iter, "estimate_s": est}
+
+
+def phase_chunked(torch, dil=None, bigc=None):
+    """Chunked dispatch on the card, float32, each run bit-equal (every
+    result field and the last matches) to the same registration run
+    monolithically: (a) 100k, default config, K = 1, 3 and max_iterations;
+    (b) the gated 100k pair, K = 2; (c) the dilate 1.2M pair, K = 2; (d)
+    big-C (C=100 000 x 12.5M, match_radius 0.05) under a budget that makes
+    the planner choose chunked, query blocks and the grid k-NN cascade, K
+    = 1: its normals bit-equal to the dense k-NN's; (e) prepare_fixed at
+    big-C under that budget, bit-equal to the dense preparation. Returns
+    each kernel's launches over the chunked runs."""
+    import dataclasses
+    import logging
+
+    import numpy as np
+
+    from simpleicp_tpu_torch import IcpConfig, prepare_fixed
+    from simpleicp_tpu_torch.models import icp
+
+    t_phase = time.perf_counter()
+    dev, f32 = torch.device("cuda"), torch.float32
+    total = {}
+
+    def register(A, B, cfg):
+        return icp._icp_register(
+            A, B, cfg, rbp_observed_values=None, rbp_observation_weights=None,
+            normals_fix=None, planarity_fix=None, planarity_mov=None,
+            fixed_prep=None, device=dev, dtype=f32)
+
+    def against_mono(A, B, cfg, ks, what):
+        """The monolithic run, then a chunked run for each K: bit-equal,
+        their launches (added to the phase's) and host reads."""
+        (mono, mono_c), mono_s, mono_l, mono_r = timed(torch, lambda: register(A, B, cfg))
+        out = {"n_iterations": int(mono.n_iterations),
+               "monolithic": {"launches": mono_l, "host_reads": mono_r, "first_run_s": mono_s}}
+        for k in ks:
+            ccfg = dataclasses.replace(cfg, dispatch="chunked", chunk_iterations=k)
+            (res, res_c), s, launches, reads = timed(torch, lambda: register(A, B, ccfg))
+            check_same_result(torch, res, mono, f"{what} chunked K={k}")
+            check(torch.equal(res_c.m_idx, mono_c.m_idx), f"{what} K={k}: last matches differ")
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            out[f"K={k}"] = {"chunks": -(-int(mono.n_iterations) // k), "launches": launches,
+                             "host_reads": reads, "extra_host_reads": reads - mono_r,
+                             "first_run_s": s, "equals_monolithic": "every field"}
+        return out
+
+    # (a) 100k, default config
+    X_fix, X_mov, _ = cloud_pair(N_MAIN, SEED + 1)
+    A = torch.as_tensor(X_fix, dtype=f32, device=dev)
+    B = torch.as_tensor(X_mov, dtype=f32, device=dev)
+    T = IcpConfig().max_iterations
+    part = {"100k": against_mono(A, B, IcpConfig(), (*CHUNK_KS, T), "100k")}
+    k1 = IcpConfig(dispatch="chunked", chunk_iterations=1)
+    part["100k"]["times"] = compare_runs(torch, {"chunked K=1": lambda: register(A, B, k1),
+                                                 "monolithic": lambda: register(A, B, IcpConfig())})
+    # (b) the gated 100k pair (brute gate)
+    G = partial_pair(N_MAIN, SEED + 3)
+    A = torch.as_tensor(G[0], dtype=f32, device=dev)
+    B = torch.as_tensor(G[1], dtype=f32, device=dev)
+    part["gated 100k"] = against_mono(A, B, IcpConfig(max_overlap_distance=GATE_RADIUS),
+                                      (2,), "gated 100k")
+    # (c) the dilate 1.2M pair
+    D = dil["clouds"] if dil else partial_pair(N_DILATE, SEED + 8, N_DILATE / N_MAIN)[:2]
+    A = torch.as_tensor(D[0], dtype=f32, device=dev)
+    B = torch.as_tensor(D[1], dtype=f32, device=dev)
+    part["dilate 1.2M"] = against_mono(A, B, IcpConfig(max_overlap_distance=GATE_RADIUS),
+                                       (2,), "dilate 1.2M")
+    check(part["dilate 1.2M"]["K=2"]["launches"]["dilate"] >= 1,
+          "chunked dilate 1.2M: the dilate gate did not run")
+    del A, B
+    emit({"phase": "chunked", "part": "a-c", "runs": part})
+
+    # (d) big-C under a budget that splits it
+    if bigc is None:
+        motion = (rotation(np.array(BIGC_ANGLES)), np.array(BIGC_T))
+        X_fix, X_mov, _ = cloud_pair(N_BIGC, SEED + 9, N_BIGC / N_MAIN, motion)
+        bigc = (torch.as_tensor(X_fix, dtype=f32, device=dev),
+                torch.as_tensor(X_mov, dtype=f32, device=dev))
+        del X_fix, X_mov
+    Xf, Xm = bigc
+    cfg = IcpConfig(correspondences=C_BIGC, match_radius=BIGC_RADIUS)
+    rcfg = icp._resolve_engines(cfg, N_BIGC, N_BIGC)
+    _, cap = icp._match_grid(Xm, rcfg)
+    budget, stages = chunk_budget(N_BIGC, C_BIGC, cap)
+    ccfg = dataclasses.replace(cfg, program_budget_s=budget, chunk_iterations=1)
+    plan = icp._plan_dispatch(dataclasses.replace(rcfg, program_budget_s=budget,
+                                                  chunk_iterations=1, match_cell_cap=cap),
+                              N_BIGC, N_BIGC, guarded=True, has_normals=False, gate_pairs=0.0)
+    check(plan.dispatch == "chunked" and plan.knn_block > 0 and plan.knn_grid,
+          f"big-C at budget {budget}: plan {plan}")
+    (mono, mono_c), mono_s, mono_l, mono_r = timed(torch, lambda: register(Xf, Xm, cfg))
+    with LogLines(logging.DEBUG) as lines:
+        (res, res_c), s, launches, reads = timed(torch, lambda: register(Xf, Xm, ccfg))
+    check_same_result(torch, res, mono, "big-C chunked with the grid k-NN cascade")
+    check(torch.equal(res_c.m_idx, mono_c.m_idx), "big-C chunked: last matches differ")
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    check(any(ln.startswith("dispatch plan: chunked") for ln in lines),
+          f"big-C: no chunked plan logged: {lines}")
+    cascade = [ln for ln in lines if ln.startswith("grid-kNN prologue")]
+    check(bool(cascade), f"big-C: the grid k-NN cascade did not run: {lines}")
+
+    # the cascade alone against the dense k-NN's normals (CUDA events and
+    # medians of 3, in turns)
+    Q = Xf[mono.sel_idx.long()].contiguous()
+    dense_n, dense_p = icp._dense_knn_rows(Q, Xf, rcfg)
+    casc_n, casc_p = icp._knn_grid_normals(Q, Xf, rcfg, plan.knn_block)
+    check(casc_n is not None, "big-C: the cascade found its plan uneconomical")
+    check(torch.equal(casc_n, dense_n) and torch.equal(casc_p, dense_p),
+          "big-C: cascade normals differ from the dense k-NN's")
+    check(torch.equal(mono.normals, dense_n) and torch.equal(mono.planarity, dense_p),
+          "big-C: the monolithic normals differ from the dense k-NN's")
+
+    def events_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    normals_ms = {"cascade": [], "dense": []}
+    for _ in range(3):
+        normals_ms["cascade"].append(events_ms(
+            lambda: icp._knn_grid_normals(Q, Xf, rcfg, plan.knn_block)))
+        normals_ms["dense"].append(events_ms(lambda: icp._dense_knn_rows(Q, Xf, rcfg)))
+    walls = compare_runs(torch, {"chunked": lambda: register(Xf, Xm, ccfg),
+                                 "monolithic": lambda: register(Xf, Xm, cfg)})
+    part_d = {
+        "n_fix": N_BIGC, "n_mov": N_BIGC, "correspondences": C_BIGC,
+        "match_radius": BIGC_RADIUS, "program_budget_s": budget, "stage_estimates": stages,
+        "plan": plan._asdict(), "match_cell_cap": cap, "cascade": cascade_rows(cascade),
+        "cascade_lines": cascade,
+        "n_iterations": int(mono.n_iterations), "equals_monolithic": "every field",
+        "normals_equal_dense_knn": True,
+        "launches": {"chunked": launches, "monolithic": mono_l},
+        "host_reads": {"chunked": reads, "monolithic": mono_r},
+        "first_run_s": {"chunked": s, "monolithic": mono_s},
+        "normals_ms": {k: {"runs": v, "median": statistics.median(v)}
+                       for k, v in normals_ms.items()},
+        "times": walls,
+    }
+    emit({"phase": "chunked", "part": "d", "big_c": part_d})
+
+    # (e) prepare_fixed at big-C under the same budget
+    pcfg = IcpConfig(correspondences=C_BIGC, program_budget_s=budget)
+    check(icp._plan_prepared_knn(pcfg, N_BIGC, dev)[1],
+          "big-C preparation: the planner did not choose the cascade")
+    with LogLines(logging.INFO) as lines:
+        prep, prep_s, prep_l, prep_r = timed(torch, lambda: prepare_fixed(Xf, pcfg, device=dev))
+    dense, dense_s, dense_l, _ = timed(
+        torch, lambda: prepare_fixed(Xf, IcpConfig(correspondences=C_BIGC), device=dev))
+    for f, a, b in zip(prep._fields, prep, dense):
+        check(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b,
+              f"big-C preparation under the budget: {f} differs from the dense one")
+    for name, n in prep_l.items():
+        total[name] = total.get(name, 0) + n
+    emit({"phase": "chunked", "part": "e", "prepare_fixed": {
+        "program_budget_s": budget, "equals_dense_preparation": "every field",
+        "launches": prep_l, "host_reads": prep_r, "s": prep_s, "cascade_lines": lines,
+        "dense_preparation": {"s": dense_s, "launches": dense_l}},
+        "chunked_launches": total, "phase_s": time.perf_counter() - t_phase})
+    missing = [k for k in KERNELS if total.get(k, 0) + (
+        total.get("nn_search_d2", 0) if k == "nn_search" else 0) == 0]
+    check(not missing, f"chunked runs launched no {missing}")
+    return total
+
+
+# The policy phase: the rates of utils/device_policy.py measured again.
+POLICY_CPU_SHAPE = (2000, 200_000)
+POLICY_SMALL = 5_000
+POLICY_BIG = 1_000_000
+
+
+def card_fixed_cost_s():
+    """The card's one-time cost in a fresh process: CUDA's start-up, the
+    load of the built kernels and the first launches, as the seconds of
+    its first 2000-point registration (C=100) on the card, CUDA's
+    initialisation included, less those of a second one. Returns the
+    median of 3 processes and each process's value."""
+    code = ("import time\n"
+            "import numpy as np, torch\n"
+            "from simpleicp_tpu_torch import IcpConfig, icp_register\n"
+            "X = np.random.default_rng(0).uniform(-1, 1, (2000, 3)) * [1, 1, 0.1]\n"
+            "def run():\n"
+            "    t0 = time.perf_counter()\n"
+            "    r = icp_register(X, X + 0.01, IcpConfig(correspondences=100))\n"
+            "    int(r.n_iterations)\n"
+            "    return time.perf_counter() - t0\n"
+            "t0 = time.perf_counter()\n"
+            "torch.cuda.init()\n"
+            "first = time.perf_counter() - t0 + run()\n"
+            "print('FIXED', first - run())\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    runs = []
+    for _ in range(3):
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"fresh card process failed: {proc.stderr[-2000:]}")
+        runs.append(float(next(ln.split()[1] for ln in proc.stdout.splitlines()
+                               if ln.startswith("FIXED"))))
+    return statistics.median(runs), runs
+
+
+def cli_auto(torch, n, seed, tmp):
+    """The CLI with --device auto on an n-point pair (C=1000, ungated), as
+    a subprocess: the route it logged and its wall time."""
+    from simpleicp_tpu_torch.utils.xyz_io import write_xyz
+
+    X_fix, X_mov, _ = cloud_pair(n, seed, n / N_MAIN)
+    f1, f2 = (os.path.join(tmp, f"{n}_{x}.xyz") for x in ("fix", "mov"))
+    write_xyz(f1, X_fix, fmt="%.6f")
+    write_xyz(f2, X_mov, fmt="%.6f")
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "simpleicp_tpu_torch", "-f", f1, "-m", f2,
+                           "--device", "auto"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"CLI --device auto at {n} exited {proc.returncode}: {log[-3000:]}")
+    check("Finished in " in log, f"CLI --device auto at {n}: no 'Finished in' line")
+    route = [ln for ln in log.splitlines() if ln.startswith("device auto: ")]
+    check(len(route) == 1, f"CLI --device auto at {n}: route lines {route}")
+    return {"n_points": n, "route_line": route[0], "routed": route[0].split()[2],
+            "wall_s": seconds}
+
+
+def phase_policy(torch):
+    """The rates of utils/device_policy.py against this run's measurements
+    (each constant within a factor of 2), the card's fixed cost in a fresh
+    process with --device auto's health probe, and the CLI's --device auto
+    routing a small pair to the CPU and a 1M pair to the card."""
+    import numpy as np
+
+    from simpleicp_tpu_torch.models import icp
+    from simpleicp_tpu_torch.ops import gridhash, knn
+    from simpleicp_tpu_torch.utils import device_policy as dp
+
+    t_phase = time.perf_counter()
+    dev, f32 = torch.device("cuda"), torch.float32
+    n_big = 5_000_000
+    X_fix, X_mov, _ = cloud_pair(n_big, SEED + 21, n_big / N_MAIN)
+    Xf = torch.as_tensor(X_fix, dtype=f32, device=dev)
+    Xm = torch.as_tensor(X_mov, dtype=f32, device=dev)
+    del X_fix, X_mov
+    Q = Xf[torch.as_tensor(np.linspace(0, n_big - 1, C_BIGC).astype(np.int64), device=dev)]
+    card = {}
+    sweep_ms = cuda_ms(torch, lambda: knn.min_dist_sq(Q, Xm), 3)
+    card["GPU_SWEEP_PAIRS_PER_SEC"] = (C_BIGC * n_big / (sweep_ms / 1e3), dp.GPU_SWEEP_PAIRS_PER_SEC,
+                                       f"1-NN d2-only, {C_BIGC} x {n_big}")
+    knn_ms = cuda_ms(torch, lambda: knn.knn_search(Q, Xf, 10), 2)
+    card["GPU_KNN10_PAIRS_PER_SEC"] = (C_BIGC * n_big / (knn_ms / 1e3), dp.GPU_KNN10_PAIRS_PER_SEC,
+                                       f"k-NN k=10, {C_BIGC} x {n_big}")
+
+    def build():
+        return icp._grid_with_cap(Xm, BIGC_RADIUS, 0)
+
+    build_ms = cuda_ms(torch, build, 3)
+    card["GPU_SORT_ELEMS_PER_SEC"] = (n_big / (build_ms / 1e3), dp.GPU_SORT_ELEMS_PER_SEC,
+                                      f"grid build and cap read, {n_big} points")
+    (pts, slots, _, origin, run_end), cap = build()
+    query_ms = cuda_ms(torch, lambda: gridhash.grid_query_sorted(
+        Q, pts, slots, origin, BIGC_RADIUS, cell_cap=cap, run_end=run_end), 3)
+    card["GPU_GATHER_ELEMS_PER_SEC"] = (C_BIGC * 27 * cap * 3 / (query_ms / 1e3),
+                                        dp.GPU_GATHER_ELEMS_PER_SEC,
+                                        f"grid query, {C_BIGC} queries x 27 x cap {cap} x 3")
+    del Xf, Xm, Q, pts, slots, origin, run_end
+
+    nq, nr = POLICY_CPU_SHAPE
+    rng = np.random.default_rng(SEED + 22)
+    Qc = torch.as_tensor(rng.uniform(-1, 1, (nq, 3)), dtype=f32)
+    Rc = torch.as_tensor(rng.uniform(-1, 1, (nr, 3)), dtype=f32)
+    Hc = torch.eye(4, dtype=f32)
+    cpu = {}
+    for const, fn, what in (
+            ("CPU_GATE_PAIRS_PER_SEC", lambda q: knn.min_dist_sq(q, Rc), "1-NN d2-only"),
+            ("CPU_KNN10_PAIRS_PER_SEC", lambda q: knn.knn_search(q, Rc, 10), "k-NN k=10"),
+            ("CPU_LOOP_PAIRS_PER_SEC", lambda q: knn.match_transform(q, Rc, Hc), "match")):
+        fn(Qc[:200])  # warm-up
+        t0 = time.perf_counter()
+        fn(Qc)
+        cpu[const] = (nq * nr / (time.perf_counter() - t0), getattr(dp, const),
+                      f"{what}, {nq} x {nr}, {torch.get_num_threads()} threads")
+    fixed, fixed_runs = card_fixed_cost_s()
+    probes = [dp.probe_default_backend(120.0) for _ in range(3)]
+    check(all(st == "ok" and be == "cuda" for st, be, _ in probes),
+          f"health probe of the card: {probes}")
+    probe_s = statistics.median(sec for _, _, sec in probes)
+    cpu["CPU_ROUTE_MAX_SEC"] = (fixed + probe_s, dp.CPU_ROUTE_MAX_SEC,
+                                f"--device auto's health probe ({probe_s:.3f} s) and the "
+                                f"card's one-time cost in a fresh process ({fixed:.3f} s), "
+                                "medians of 3")
+    rows = {}
+    for name, (measured, const, what) in {**card, **cpu}.items():
+        ratio = const / measured if measured > 0 else math.inf
+        rows[name] = {"measured": measured, "constant": const, "constant_over_measured": ratio,
+                      "what": what}
+    emit({"phase": "policy", "part": "rates", "rates": rows, "card_fixed_cost_runs_s": fixed_runs,
+          "probe_runs_s": [sec for _, _, sec in probes]})
+    for name, row in rows.items():
+        check(0.5 <= row["constant_over_measured"] <= 2.0,
+              f"{name} = {row['constant']:.4g}, this run measured {row['measured']:.4g} "
+              "(not within a factor of 2)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        small = cli_auto(torch, POLICY_SMALL, SEED + 23, tmp)
+        big = cli_auto(torch, POLICY_BIG, SEED + 24, tmp)
+    check(small["routed"] == "cpu", f"--device auto on {POLICY_SMALL} points: {small}")
+    check(big["routed"] == "cuda", f"--device auto on {POLICY_BIG} points: {big}")
+    emit({"phase": "policy", "part": "cli", "device_auto": [small, big],
+          "phase_s": time.perf_counter() - t_phase})
 
 
 def phase_cli(torch):
@@ -2379,7 +2785,11 @@ def main(argv=None) -> int:
     gated_launches, gated_big = (phase_gated(torch, cmp) if "gated" in phases
                                  else (None, None))
     dil = phase_dilate(torch, cmp) if "dilate" in phases else None
-    grid = phase_grid(torch, cmp, dil) if "grid" in phases else None
+    grid, bigc = phase_grid(torch, cmp, dil) if "grid" in phases else (None, None)
+    chunked = phase_chunked(torch, dil, bigc) if "chunked" in phases else None
+    del bigc
+    if "policy" in phases:
+        phase_policy(torch)
     errs = cmp.err if "kernels" in phases else None
     if "cli" in phases:
         phase_cli(torch)
@@ -2401,7 +2811,9 @@ def main(argv=None) -> int:
         # B=8 batches' match, k-NN and 1-NN (the dilate gate is refused in
         # batch mode); and on the grid path (grid_launches): the big-C
         # grid-matched registration's k-NN (its matcher and gate are the
-        # grid engines, PyTorch operations).
+        # grid engines, PyTorch operations); and on the chunked path
+        # (chunked_launches): every kernel over the chunked phase's runs
+        # (the 1-NN's two modes summed).
         modes = {"d2_only": gated_launches["nn_search_d2"], "index": gated_launches["nn_search"]}
         launches = {**main_info[0], "nn_search": sum(modes.values()),
                     "dilate": dil["launches"]["dilate"]}
@@ -2417,7 +2829,9 @@ def main(argv=None) -> int:
                 if name == "nn_search" else {}),
              **({} if serve is None else {"serve_launches": serve[name]}),
              **({} if batch is None else {"batch_launches": batch.get(name, 0)}),
-             **({} if grid is None else {"grid_launches": grid.get(name, 0)})}
+             **({} if grid is None else {"grid_launches": grid.get(name, 0)}),
+             **({} if chunked is None else {"chunked_launches": chunked.get(name, 0) + (
+                 chunked.get("nn_search_d2", 0) if name == "nn_search" else 0)})}
             for name in KERNELS
         ]})
     check("jax" not in sys.modules, "JAX was imported during the run")

@@ -309,10 +309,11 @@ class SimpleICP:
         registration of subsampled clouds first and starts the full run
         from its result (``IcpConfig.warm_start``); ``approx_knn`` runs the
         exact k-NN, as the JAX package does off the TPU; the grid gate and
-        matcher run as the config resolves them. Settings that are not
-        ported yet raise NotImplementedError naming their ROADMAP item:
-        ``mesh`` and ``num_devices`` (sharded runs) and
-        ``dispatch="chunked"``.
+        matcher run as the config resolves them; ``dispatch``,
+        ``chunk_iterations``, ``program_budget_s`` and ``stall_policy``
+        plan and run chunked dispatch on the card (``icp_register``).
+        Settings that are not ported yet raise NotImplementedError naming
+        their ROADMAP item: ``mesh`` and ``num_devices`` (sharded runs).
 
         Returns:
             (H, X_mov_transformed, rbp, distance_residuals)

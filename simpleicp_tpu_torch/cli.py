@@ -5,11 +5,15 @@ The flag names, short options and defaults are those of the JAX package's
 CLI, which follow the reference C++ and Rust CLIs, including "a negative
 max_overlap_distance disables the gate", the ``--preset`` table and the
 ``--observed-values``/``--observation-weights`` extension. Differences:
-``--device`` takes ``cuda`` (the default; an error without a card) or
-``cpu``, with no ``auto`` routing and no health probe, so there is no
-``--probe-timeout``; ``--dtype`` chooses float32 (the default) or float64.
-Flags whose values are not ported yet fail with their ROADMAP item:
-``--num-devices`` and ``--dispatch chunked``.
+``--device`` takes ``cuda`` (the default; an error without a card),
+``cpu``, or ``auto``, which routes a job its plain versions are estimated
+to finish on the host CPU within the card's fixed cost to the CPU and
+any other to the card (``utils/device_policy.py``); ``--dtype`` chooses
+float32 (the default) or float64. A job routed to the card without one
+raises; it never falls back to the CPU. Only ``auto`` health-probes the
+card first (the JAX package probes before every accelerator job).
+``--num-devices`` is not ported
+yet and fails with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -93,9 +97,11 @@ def build_parser() -> argparse.ArgumentParser:
              "sharding is not ported yet)",
     )
     p.add_argument(
-        "--device", choices=("cuda", "cpu"), default="cuda",
-        help="where to run: cuda (the card, the default) or cpu (the plain "
-             "versions of the kernels)",
+        "--device", choices=("cuda", "cpu", "auto"), default="cuda",
+        help="where to run: cuda (the card, the default), cpu (the plain "
+             "versions of the kernels), or auto (the CPU for a registration "
+             "estimated to finish there within the card's fixed cost of a "
+             "fresh process, else the card)",
     )
     p.add_argument(
         "--dtype", choices=tuple(_DTYPES), default="float32",
@@ -125,18 +131,22 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--program-budget", type=float, default=30.0,
-        help="TPU program-time guard of the JAX package; no effect here",
+        help="card seconds one run may take in one piece, priced with the "
+             "card's rates: over it the run goes chunked, and a step no "
+             "chunking can bring under it is refused (0 disables; no effect "
+             "on the CPU)",
     )
     p.add_argument(
         "--dispatch", choices=["auto", "monolithic", "chunked"],
         default="auto",
-        help="program shape; auto is monolithic here, chunked is not "
-             "ported yet",
+        help="run the ICP loop in one piece (monolithic), K iterations a "
+             "call with the state on the card (chunked; the same result), "
+             "or chunked only over --program-budget (auto)",
     )
     p.add_argument(
         "--chunk-iterations", type=int, default=0,
-        help="iterations per chunked-dispatch program (chunked dispatch is "
-             "not ported yet)",
+        help="iterations per chunk (0 = from --program-budget on the card, "
+             "8 on the CPU)",
     )
     p.add_argument(
         "--warm-start", action="store_true",
@@ -158,7 +168,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--stall-policy", choices=["warn", "wait"], default="warn",
-        help="TPU chunked-dispatch policy of the JAX package; no effect here",
+        help="chunked dispatch, when a chunk takes far longer than its "
+             "card-priced estimate: warn logs and continues; wait holds "
+             "the next chunk until a fresh-shape health probe of the card "
+             "answers (the state stays on the card, so the result is the "
+             "same)",
+    )
+    p.add_argument(
+        "--probe-timeout", type=float, default=120.0,
+        help="--device auto: timeout in seconds of the health probe of "
+             "the card (a subprocess of a few seconds) before a job routed "
+             "there; a failed probe sends a CPU-tractable job to the CPU (0 "
+             "disables the probe; --device cuda never probes)",
     )
     p.add_argument("--quiet", action="store_true")
     return p
@@ -173,6 +194,36 @@ PRESETS = {
     "julia": ("linearized", 3.0, 1.4826, "joint", 1),
     "matlab": ("linearized", 3.0, 1.4826, "joint", 1),
 }
+
+
+def _route(args, nf: int, nm: int, max_overlap: float, log) -> str:
+    """The device of the run, "cpu" or "cuda": ``--device`` resolved by
+    size (``device_policy.resolve_device``). A route to the card raises
+    without one, before any probe. Only ``auto`` health-probes the card
+    (``--probe-timeout``), since only there can a failed probe change the
+    route: it sends a CPU-tractable job to the CPU, with a warning on
+    standard error. ``cuda`` runs on the card unprobed."""
+    from .utils import device_policy
+    from .utils.device import resolve
+
+    sizes = dict(correspondences=args.correspondences, neighbors=args.neighbors,
+                 max_overlap_distance=max_overlap, max_iterations=args.max_iterations)
+    routed = device_policy.resolve_device(args.device, nf, nm,
+                                          sharded=args.num_devices > 0, **sizes)
+    if args.device == "auto":
+        log.info("device auto: %s (estimated %.3g s on the CPU, threshold %.3g s)",
+                 routed, device_policy.estimate_cpu_seconds(nf, nm, **sizes),
+                 device_policy.CPU_ROUTE_MAX_SEC)
+    if routed == "cpu":
+        return routed
+    resolve(routed, None)  # no card: RuntimeError, never the CPU
+    if args.device == "auto" and args.probe_timeout > 0:
+        status, _, _ = device_policy.probe_default_backend(args.probe_timeout)
+        routed, msg = device_policy.degraded_fallback(
+            args.device, status, device_policy.estimate_cpu_seconds(nf, nm, **sizes))
+        if msg and not args.quiet:
+            print(f"WARNING: {msg}", file=sys.stderr, flush=True)
+    return routed
 
 
 def main(argv=None) -> int:
@@ -204,6 +255,7 @@ def main(argv=None) -> int:
     log.debug("timing: parse both clouds %.2f s", time.time() - t0)
 
     max_overlap = math.inf if args.max_overlap_distance < 0 else args.max_overlap_distance
+    device = _route(args, len(pc_fix), len(pc_mov), max_overlap, log)
 
     solver, min_change = args.solver, args.min_change
     mad_scale, staging, ddof = args.mad_scale, args.rejection_staging, args.std_ddof
@@ -213,7 +265,7 @@ def main(argv=None) -> int:
         staging = p_staging if staging is None else staging
         ddof = p_ddof if ddof is None else ddof
 
-    icp = SimpleICP(verbose=not args.quiet, device=args.device,
+    icp = SimpleICP(verbose=not args.quiet, device=device,
                     dtype=_DTYPES[args.dtype])
     icp.add_point_clouds(pc_fix, pc_mov)
     _, X_out, _, _ = icp.run(

@@ -2,9 +2,9 @@
 
 The same fields, defaults and checks as the JAX package's ``IcpConfig``, so
 that a configuration moves between the two packages unchanged
-(``convert.config_from_dict``). Some fields only choose TPU tiles or guard the
-TPU runtime's watchdog; they change no result there either, and they have no
-effect here (see the field notes below).
+(``convert.config_from_dict``). Some fields only choose TPU tiles; they
+change no result there either, and they have no effect here (see the field
+notes below).
 """
 
 from __future__ import annotations
@@ -68,12 +68,17 @@ class IcpConfig:
             the radius; rows whose nearest point lies farther are dropped.
         match_radius / match_cell_cap: the grid matcher's radius (0: the
             gate's) and cell cap (0: counted from the cloud).
-        program_budget_s: TPU watchdog guard of the JAX package. No effect
-            in this package (there is no program watchdog on the GPU).
-        dispatch: "auto" resolves to "monolithic" here; "chunked" is not
-            ported yet.
-        chunk_iterations: iterations per chunk of chunked dispatch (not
-            ported).
+        program_budget_s: card seconds one run may take in one piece (0:
+            no limit). On the card the planner prices each stage with the
+            card's rates (``utils/device_policy.py``): above the budget,
+            "auto" runs chunked, and a step that no plan can split below
+            it raises. No effect on the CPU.
+        dispatch: "monolithic" (one loop), "chunked" (K iterations a call,
+            the carry on the device; the same result bit for bit) or
+            "auto" (chunked when the card-priced estimate exceeds
+            ``program_budget_s``; monolithic on the CPU).
+        chunk_iterations: iterations per chunk (0: from half the budget on
+            the card, 8 on the CPU).
         warm_start / warm_start_points / warm_start_correspondences:
             coarse-to-fine warm start: a registration of clouds subsampled
             to about warm_start_points points (warm_start_correspondences
@@ -81,8 +86,10 @@ class IcpConfig:
             or below warm_start_points skip it (``plan_warm_start``).
         convergence_floor_scale: absolute convergence noise floor in units
             of eps(dtype) * max|Q| (0 disables it).
-        stall_policy: TPU degraded-window policy of chunked dispatch. No
-            effect in this package.
+        stall_policy: what a chunk taking far longer than its card-priced
+            estimate does (a throttled or shared card): "warn" logs and
+            goes on; "wait" holds the next chunk until a health probe of
+            the card answers. The result is the same either way.
         gate_collective: collective of the sharded gate (not ported).
     """
 

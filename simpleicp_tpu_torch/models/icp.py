@@ -43,6 +43,15 @@ resolving its cell cap on the device one occupancy; ``utils/sync.py``
 counts them). Its results equal those of the JAX
 package's ``lax.while_loop`` field for field: the state it keeps on an
 error, the iteration it stops at, the buffers it fills.
+
+Chunked dispatch (``dispatch="chunked"``, and "auto" when the card-priced
+estimate exceeds ``program_budget_s``; ``_plan_dispatch``): the loop runs
+K iterations a call, resuming from the carry on the device, with the
+stall check of the JAX package at every chunk boundary; each chunk ends
+on the flag the loop reads anyway, so chunking adds no host read. Over
+budget, the normals k-NN runs as query blocks or through the certified
+grid k-NN cascade (``_knn_grid_normals``). Every plan gives the monolithic
+run's result bit for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import time
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -62,6 +72,7 @@ from ..ops.gridhash import (
     grid_build_cap,
     grid_cell_cap,
     grid_query_sorted,
+    knn_query_sorted,
 )
 from ..ops.knn import knn_search, match_transform, min_dist_sq
 from ..ops.normals import estimate_normals_from_neighborhoods
@@ -72,8 +83,9 @@ from ..ops.transform import (
     rbp_to_H,
     rotation_matrix_to_euler_angles,
 )
+from ..utils import device_policy
 from ..utils.device import resolve
-from ..utils.sync import read_array, read_flag
+from ..utils.sync import read_array, read_flag, read_nonzero
 from .solver import estimate_uncertainties, gn_solve, host_rotation, linearized_solve
 
 # Error codes of IcpResult.error_code.
@@ -130,6 +142,8 @@ class IcpResult(NamedTuple):
 class _Carry(NamedTuple):
     """The loop state of B pairs, each tensor with its leading pair axis."""
     it: int                         # iterations run by the batch (host)
+    go: bool                        # some pair still passes the loop's
+                                    # entry test, as last read (host)
     n_it: Optional[torch.Tensor]    # (B,) each pair's iterations; None at B=1
     p: torch.Tensor
     H: torch.Tensor
@@ -332,15 +346,26 @@ def _grid_with_cap(X: torch.Tensor, radius: float, cap: int, X_host=None):
     return grid, -(-int(read_array(occupancy)) // 8) * 8
 
 
-def _make_match_fn(Q, Xm, cfg: IcpConfig, mov_host=None):
+def _match_grid(Xm: torch.Tensor, cfg: IcpConfig, mov_host=None):
+    """The grid matcher's cell list over the untransformed movable cloud
+    Xm (nm, 3) at the match radius (``match_radius``, else the gate's), and
+    its cell cap (``_grid_with_cap``; ``mov_host``: the movable cloud when
+    it came as numpy). Built once per registration; every iteration, and
+    every chunk of a chunked run, queries it."""
+    rm = cfg.match_radius if cfg.match_radius > 0 else cfg.max_overlap_distance
+    X_host = None if cfg.match_cell_cap else mov_host
+    return _grid_with_cap(Xm, rm, cfg.match_cell_cap, X_host)
+
+
+def _make_match_fn(Q, Xm, cfg: IcpConfig, grid=None):
     """The per-iteration matcher of B pairs: match_fn(Ht (B, 4, 4)) ->
     (m_idx, m_t, m_orig, m_valid). The match kernel takes the untransformed
     clouds and Ht, one launch for the batch, so the moved clouds are never
     materialized; only the C matched rows of each are moved. The grid
-    matcher (one pair; ``mov_host``: the movable cloud when it came as
-    numpy) is ``_make_grid_match_fn``."""
+    matcher (one pair; ``grid``: its ``_match_grid``, which the caller
+    builds once) is ``_make_grid_match_fn``."""
     if cfg.match_method == "grid":
-        return _make_grid_match_fn(Q, Xm, cfg, mov_host)
+        return _make_grid_match_fn(Q, Xm, cfg, grid)
 
     def match_fn(Ht):
         _, m_idx = match_transform(Q, Xm, Ht)
@@ -351,19 +376,18 @@ def _make_match_fn(Q, Xm, cfg: IcpConfig, mov_host=None):
     return match_fn
 
 
-def _make_grid_match_fn(Q, Xm, cfg: IcpConfig, mov_host=None):
+def _make_grid_match_fn(Q, Xm, cfg: IcpConfig, grid):
     """The static-grid matcher of one pair (Q (1, C, 3), Xm (1, nm, 3)):
-    ONE cell list over the untransformed movable cloud serves every
-    iteration. Rigid motion preserves distances, so the nearest of the
+    ONE cell list over the untransformed movable cloud (``grid``, from
+    ``_match_grid``) serves every iteration. Rigid motion preserves
+    distances, so the nearest of the
     moved points H x to q is the nearest point x to H^-1 q = R^T (q - t).
     Exact within the match radius (``match_radius``, else the gate's):
     a row whose nearest point lies farther is dropped (``m_valid``) with
     index 0. With the linearized solver H is only nearly orthogonal, so
     near-ties can resolve otherwise than the brute matcher's."""
     rm = cfg.match_radius if cfg.match_radius > 0 else cfg.max_overlap_distance
-    X_host = None if cfg.match_cell_cap else mov_host
-    grid, cap = _grid_with_cap(Xm[0], rm, cfg.match_cell_cap, X_host)
-    g_pts, g_slots, g_order, g_origin, g_run_end = grid
+    (g_pts, g_slots, g_order, g_origin, g_run_end), cap = grid
     r = torch.tensor(rm, dtype=Xm.dtype, device=Xm.device)
     q = Q[0]
 
@@ -386,7 +410,9 @@ def _make_grid_match_fn(Q, Xm, cfg: IcpConfig, mov_host=None):
 
 def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
     """The loop-entry state of B pairs (iteration 0, nothing executed):
-    obs_vals (B, 6), H0 (B, 4, 4), error0 (B,) int32."""
+    obs_vals (B, 6), H0 (B, 4, 4), error0 the host int array (B,) of the
+    error codes the pairs start from. The monolithic loop and
+    ``_run_chunked`` start from it alike."""
     C = cfg.correspondences
     T = cfg.max_iterations
     dev = H0.device
@@ -402,12 +428,13 @@ def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
     R = T if cfg.record_trajectory else 1
     return _Carry(
         it=0,
+        go=bool(np.any(error0 == ERR_OK)),
         n_it=None if B == 1 else full((), 0, torch.int32),
         p=obs_vals.to(dtype),
         H=H0,
         dist_w=full((), 1.0 if auto_dw else cfg.distance_weights),
         converged=full((), False, torch.bool),
-        error=error0,
+        error=torch.as_tensor(error0, dtype=torch.int32, device=dev),
         prev_mean=full((), float("inf")),
         prev_std=full((), float("inf")),
         iter_counts=full((T,), 0, torch.int32),
@@ -434,7 +461,7 @@ def _keep_stopped(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
 
 def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
                  cfg: IcpConfig, dtype, error0, H0, match_fn, gather_fn,
-                 mov_planarity_fn=None):
+                 mov_planarity_fn=None, carry_in=None, it_hi=None):
     """The match -> reject -> solve -> converge iteration of B pairs at
     once: Q, normals (B, C, 3), planarity, sel_valid (B, C), obs_vals,
     obs_w (B, 6), H0 (B, 4, 4).
@@ -455,6 +482,17 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
     ``it == 0`` branches stay host integers, and one flag is read per
     iteration for the whole batch. With one pair the loop ends when the
     pair stops, so nothing needs freezing and nothing is.
+
+    Chunked dispatch: ``carry_in`` resumes from an earlier call's carry
+    (``error0`` and ``H0`` are then unused), and ``it_hi`` stops after
+    iteration it_hi - 1. The entry test stays the JAX package's, (it <
+    min(it_hi, T)) & ~converged & (error == OK), read from the carry's
+    ``go``: the flag read after a chunk's last iteration is the one the
+    monolithic loop reads there, so K iterations a call compose to the
+    monolithic loop bit for bit and with its host reads. The carry's
+    buffers are updated in place: a caller keeps no reference to an
+    earlier chunk's carry. Without ``gather_fn`` the uncertainty estimate
+    is left to the caller (``_uncertainties`` of the final carry).
 
     Returns (final_carry, uncertainties, covariance).
     """
@@ -560,13 +598,17 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
             getattr(c, k)[:, c.it] = v
         return c._replace(it=c.it + 1, **new)
 
-    c = make_carry_init(cfg, dtype, obs_vals, H0,
-                        torch.as_tensor(error0, dtype=torch.int32, device=Q.device))
-    active = None if B == 1 else torch.as_tensor(error0 == ERR_OK, device=Q.device)
-    # The JAX loop tests (it < T) & ~converged & (error == OK) before every
+    if carry_in is None:
+        c = make_carry_init(cfg, dtype, obs_vals, H0, error0)
+        active = None if B == 1 else torch.as_tensor(error0 == ERR_OK, device=Q.device)
+    else:
+        c = carry_in
+        active = None if B == 1 else ~c.converged & (c.error == ERR_OK)
+    hi = T if it_hi is None else min(it_hi, T)
+    # The JAX loop tests (it < hi) & ~converged & (error == OK) before every
     # iteration, the first included, for each pair.
-    go = bool(np.any(error0 == ERR_OK))
-    while go and c.it < T:
+    go = c.go
+    while go and c.it < hi:
         c = body(c, active)
         if c.it < T:
             stopped = c.converged | (c.error != ERR_OK)
@@ -574,12 +616,19 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
                 active = ~stopped
                 stopped = stopped.all()
             go = not read_flag(stopped)
+    c = c._replace(go=go)
+    if gather_fn is None:
+        return c, None, None
+    return (c, *_uncertainties(c, Q, normals, obs_vals, obs_w, gather_fn))
 
-    uncertainties, covariance = estimate_uncertainties(
+
+def _uncertainties(c: _Carry, Q, normals, obs_vals, obs_w, gather_fn):
+    """The a-posteriori (uncertainties, covariance) of a final carry, on its
+    last iteration's matches."""
+    return estimate_uncertainties(
         c.p, gather_fn(c.m_idx), Q, normals, c.residual_mask,
         c.dist_w, obs_vals, obs_w,
     )
-    return c, uncertainties, covariance
 
 
 def _result_from_carry(c: _Carry, uncertainties, covariance, sel_idx,
@@ -629,13 +678,10 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _resolve_engines(cfg: IcpConfig, nf: int, nm: int) -> IcpConfig:
-    """The configuration with its matcher, gate and dispatch resolved as the
-    JAX package resolves them off the TPU. Every setting this package does
-    not run yet raises NotImplementedError naming the ROADMAP item that will
-    port it; none is ignored. (``approx_knn`` runs the exact k-NN, as the
-    JAX package does off the TPU.)"""
-    if cfg.dispatch == "chunked":
-        raise not_ported("dispatch='chunked'", "item 12 (chunked dispatch)")
+    """The configuration with its matcher and gate resolved as the JAX
+    package resolves them; the dispatch is the planner's
+    (``_plan_dispatch``). (``approx_knn`` runs the exact k-NN, as the JAX
+    package does off the TPU.)"""
     match = cfg.match_method
     if match == "auto":
         has_radius = cfg.match_radius > 0 or cfg.overlap_enabled
@@ -646,8 +692,7 @@ def _resolve_engines(cfg: IcpConfig, nf: int, nm: int) -> IcpConfig:
         gate = "brute"
     # "dilate", and "auto" above 2^40 pairs, are resolved by the plan
     # (_resolve_gate), which needs the transformed cloud's bounding box.
-    return dataclasses.replace(cfg, match_method=match, gate_method=gate,
-                               dispatch="monolithic")
+    return dataclasses.replace(cfg, match_method=match, gate_method=gate)
 
 
 def _resolve_gate(cfg: IcpConfig, nf: int, nm: int, bbox_fn):
@@ -817,6 +862,441 @@ def plan_warm_start(
     return cfg, rbp_observed_values
 
 
+# ---------------------------------------------------------------- dispatch
+
+_log = logging.getLogger(__name__)
+
+
+class DispatchPlan(NamedTuple):
+    """How one registration runs: ``dispatch`` "monolithic" or "chunked",
+    with ``chunk_iterations`` iterations a call; the normals k-NN in query
+    blocks of ``knn_block`` rows (0: one call) and, with ``knn_grid``,
+    through the grid k-NN cascade first. Every plan gives the same result
+    bit for bit."""
+
+    dispatch: str
+    chunk_iterations: int
+    knn_block: int = 0
+    knn_grid: bool = False
+
+
+def _knn_block_rows(budget: float, knn_s: float, C: int) -> int:
+    """Rows of one k-NN query block of about half the budget, as the JAX
+    package sizes them: a multiple of 2048, at least 2048, at most C
+    rounded up to 2048."""
+    rows_per_budget = (budget * 0.5) / max(knn_s, 1e-9) * C
+    knn_block = max(2048, int(rows_per_budget) // 2048 * 2048)
+    return min(knn_block, -(-C // 2048) * 2048)
+
+
+def _plan_dispatch(cfg: IcpConfig, nf: int, nm: int, *, guarded: bool,
+                   has_normals: bool, gate_pairs: float,
+                   warm_requested: bool = False, obs=(None, None)) -> DispatchPlan:
+    """The dispatch plan of one registration, the JAX package's planner
+    with the card's rates (``device_policy.estimate_gpu_stage_seconds``).
+
+    ``guarded`` (``program_budget_s`` > 0 and the clouds on the card):
+    a registration estimated within the budget runs monolithic; above it,
+    "auto" runs chunked, K iterations a call from half the budget, the
+    normals k-NN in query blocks when the prologue would exceed 0.9 of the
+    budget, and through the grid k-NN cascade when the k-NN alone exceeds
+    half of it. A configuration whose largest indivisible step (the gate
+    with the grid build, one iteration, one 2048-row k-NN block) exceeds
+    0.9 of the budget raises ValueError, and so does an explicit
+    "monolithic" over the budget. ``cfg`` carries the grid matcher's
+    resolved cell cap; ``gate_pairs`` are the brute gate's pairs (0 for
+    the dilate and grid gates, and for "auto" above 2^40 pairs, which
+    resolves to one of them where a grid fits). Unguarded, "auto" is
+    monolithic and an explicit "chunked" without K takes 8 iterations a
+    call. ``obs`` (the observed values and weights) only silence the
+    warm-start hint."""
+    dispatch, chunk_k = cfg.dispatch, cfg.chunk_iterations
+    if not guarded:
+        return DispatchPlan("monolithic" if dispatch == "auto" else dispatch,
+                            chunk_k or 8)
+    budget = cfg.program_budget_s
+    C = cfg.correspondences
+    gate_s, knn_s, build_s, per_iter_s = device_policy.estimate_gpu_stage_seconds(
+        nf, nm, correspondences=C, neighbors=cfg.neighbors, gate_pairs=gate_pairs,
+        match_method=cfg.match_method, match_cell_cap=cfg.match_cell_cap,
+        has_normals=has_normals,
+    )
+    # the monolithic run goes up to max_iterations; price the typical
+    # converged count (healthy runs finish in about 10)
+    est = gate_s + knn_s + build_s + min(10, cfg.max_iterations) * per_iter_s
+    knn_atom_s = min(knn_s, knn_s * 2048.0 / max(C, 1))
+    atom_s = max(gate_s + build_s, per_iter_s, knn_atom_s)
+    if atom_s > budget * 0.9:
+        raise ValueError(
+            f"this configuration is estimated at ~{atom_s:.3g} s of card time "
+            f"for its largest indivisible step (gate ~{gate_s:.3g} s, grid "
+            f"build ~{build_s:.3g} s, ~{per_iter_s:.3g} s per iteration): even "
+            f"chunked dispatch would exceed program_budget_s={budget:g}. "
+            "Reduce `correspondences`, set a small `match_radius` (the grid "
+            "matcher's cells shrink with it), run on device='cpu', or raise "
+            "or disable (0) program_budget_s."
+        )
+    if dispatch == "monolithic" and est > budget:
+        raise ValueError(
+            f"this configuration is estimated at ~{est:.3g} s of card time in "
+            f"one monolithic run, over program_budget_s={budget:g}. Use "
+            "dispatch='auto' or 'chunked' (the same result in bounded "
+            "chunks), reduce `correspondences`, or raise or disable (0) "
+            "program_budget_s."
+        )
+    if dispatch == "auto":
+        dispatch = "monolithic" if est <= budget else "chunked"
+    knn_block, knn_grid = 0, False
+    if dispatch == "chunked":
+        if chunk_k == 0:
+            # half the budget a chunk
+            chunk_k = max(1, int((budget * 0.5) / max(per_iter_s, 1e-9)))
+        if gate_s + build_s + knn_s > budget * 0.9:
+            knn_block = _knn_block_rows(budget, knn_s, C)
+            knn_grid = knn_s > budget * 0.5
+    _log.info(
+        "dispatch plan: %s (est %.1f s = gate %.1f + knn %.1f + build "
+        "%.1f + %.2f s/iter%s%s; budget %g s)",
+        dispatch, est, gate_s, knn_s, build_s, per_iter_s,
+        f", K={chunk_k}" if dispatch == "chunked" else "",
+        f", knn_block={knn_block}" if knn_block else "", budget,
+    )
+    if (dispatch == "chunked" and not warm_requested and per_iter_s > 1.0
+            and all(v is None or not np.any(_host_f64(v)) for v in obs)):
+        # Iterations dominate this run's cost; a coarse-to-fine seed
+        # usually removes about half of them.
+        _log.info(
+            "hint: this registration runs ~%.1f s per full-resolution "
+            "iteration; warm_start=True (coarse-to-fine) typically "
+            "halves the iteration count at identical convergence "
+            "basin.", per_iter_s,
+        )
+    return DispatchPlan(dispatch, chunk_k, knn_block, knn_grid)
+
+
+# Certificate margin of the grid k-NN cascade (knn_query_sorted's default).
+_KNN_CERT_MARGIN = 1e-3
+# Queries of the cascade's radius sample, and the fewest queries the
+# cascade takes on (below, the dense k-NN alone is cheap).
+_KNN_SAMPLE = 1024
+_KNN_GRID_MIN_QUERIES = 4096
+
+
+def _knn_cascade_radius(d2_sample: np.ndarray, r_hi: float) -> float:
+    """The round-1 radius of the cascaded grid k-NN, from the sampled k-th
+    neighbour's squared distances.
+
+    A radius sized by the sample's maximum certifies about every query in
+    one pass, but every query then pays 27 * cap(r_hi) candidates, and the
+    cap grows about with r^3, so one distant outlier inflates the cost of
+    all. Round 1 runs at a quantile radius r_q instead, and only the
+    uncertified tail runs again at r_hi; under the cap(r) ~ r^3 model the
+    relative cost is
+
+        cost(q) ~ (r_q / r_hi)^3 + fail(q)
+
+    with fail(q) estimated from the same sample. Returns the radius of the
+    least cost (r_hi when one round is already the cheapest, as for tight
+    unimodal spacing)."""
+    best_r, best_cost = r_hi, 1.0
+    for q in (0.5, 0.75, 0.9):
+        rq = 1.25 * float(np.sqrt(np.quantile(d2_sample, q)))
+        if rq <= 0.0:
+            continue
+        fail = float(np.mean(d2_sample > ((1.0 - _KNN_CERT_MARGIN) * rq) ** 2))
+        cost = (rq / r_hi) ** 3 + fail
+        if cost < best_cost:
+            best_r, best_cost = rq, cost
+    return best_r
+
+
+def _dense_knn_rows(Q: torch.Tensor, Xf: torch.Tensor, cfg: IcpConfig):
+    """Normals (n, 3) and planarity (n,) of the queries Q (n, 3) from their
+    dense k-NN in Xf (nf, 3): ``_normals_stage`` on a batch of one. Each
+    row depends on its query alone, so any split of the queries gives the
+    same rows bit for bit."""
+    normals, planarity = _normals_stage(Q[None], Xf[None], None, None, None, cfg=cfg)
+    return normals[0], planarity[0]
+
+
+def _dense_knn_blocks(Q: torch.Tensor, Xf: torch.Tensor, cfg: IcpConfig,
+                      knn_block: int):
+    """The normals of the queries Q (C, 3) as dense k-NN query blocks of
+    ``knn_block`` rows (0: one block), one k-NN launch each."""
+    blk = knn_block or Q.shape[0]
+    parts = [_dense_knn_rows(Q[s:s + blk], Xf, cfg) for s in range(0, Q.shape[0], blk)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _grid_knn_rows(Q: torch.Tensor, Xf: torch.Tensor, grid, radius: float,
+                   cfg: IcpConfig):
+    """Normals, planarity and certificate of the queries Q (n, 3) from the
+    grid k-NN (``knn_query_sorted``) of ``grid`` (``_grid_with_cap`` of Xf
+    at ``radius``). A certified row's neighbours are the dense k-NN's, so
+    its normal is the dense one bit for bit."""
+    (pts, slots, order, origin, run_end), cap = grid
+    _, ik, cert = knn_query_sorted(Q, pts, slots, order, origin, radius, cfg.neighbors,
+                                   cell_cap=cap, run_end=run_end,
+                                   cert_margin=_KNN_CERT_MARGIN)
+    # A row with fewer than k candidates holds the padding index 2^31 - 1;
+    # it is uncertified, and gathers the last point as the JAX package's
+    # clamped gather does.
+    ik = torch.clamp(ik, max=Xf.shape[0] - 1)
+    normals, planarity, _ = estimate_normals_from_neighborhoods(_rows(Xf[None], ik[None]))
+    return normals[0], planarity[0], cert
+
+
+def _knn_grid_normals(Q: torch.Tensor, Xf: torch.Tensor, cfg: IcpConfig,
+                      knn_block: int):
+    """The normals of the queries Q (C, 3) through the certified grid k-NN
+    cascade, the JAX package's, priced with the card's rates:
+
+      1. the k-th neighbour's squared distance of 1024 strided queries (one
+         k-NN launch, one host read) gives the guaranteed radius r_hi =
+         1.25 * its maximum and a cheaper round-1 radius r
+         (``_knn_cascade_radius``);
+      2. the cell list over the fixed cloud at r and its exact cell cap
+         (one host read);
+      3. round 1: the grid k-NN of every query at r, with each row's
+         exactness certificate (one host read: the uncertified rows);
+      4. round 2: the uncertified rows again through a second grid at
+         r_hi, when that is priced cheaper than the dense patch;
+      5. rows still uncertified: the dense k-NN in blocks of ``knn_block``
+         rows, patched in on the device.
+
+    Every row equals the dense k-NN's normal bit for bit: certified rows
+    by the certificate, patched rows by construction. Returns (normals,
+    planarity), or (None, None) when the grid plan is uneconomical (fewer
+    than 4096 queries, a degenerate radius, or candidates priced above
+    the dense k-NN); the caller then runs dense blocks."""
+    C = Q.shape[0]
+    if C < _KNN_GRID_MIN_QUERIES:
+        return None, None
+    k = cfg.neighbors
+    # C >= 4096: the strided sample holds 1024 queries
+    Qs = Q[::max(1, C // _KNN_SAMPLE)][:_KNN_SAMPLE].contiguous()
+    d2_last = read_array(knn_search(Qs, Xf, k)[0][:, -1])
+    d2_ok = d2_last[np.isfinite(d2_last)]
+    d2_max = float(np.max(d2_ok, initial=0.0))
+    if d2_max <= 0.0:
+        return None, None
+    r_hi = 1.25 * float(np.sqrt(d2_max))
+    r = _knn_cascade_radius(d2_ok, r_hi)
+    grid = _grid_with_cap(Xf, r, 0)
+    cap = grid[1]
+    # economics: candidate gathers against the dense k-NN (the round-2 tail
+    # priced by the cube-model cap at r_hi)
+    gather_rate = device_policy.GPU_GATHER_ELEMS_PER_SEC
+    knn_rate = device_policy.GPU_KNN10_PAIRS_PER_SEC * 10.0 / k
+    exp_fail = (float(np.mean(d2_ok > ((1.0 - _KNN_CERT_MARGIN) * r) ** 2))
+                if r < r_hi else 0.0)
+    cap_hi_est = cap * (r_hi / r) ** 3
+    grid_cost = C * 27.0 * (cap + exp_fail * cap_hi_est) * 3.0 / gather_rate
+    dense_cost = float(C) * Xf.shape[0] / knn_rate
+    if grid_cost > min(dense_cost, max(cfg.program_budget_s, 30.0) * 0.9):
+        return None, None
+
+    normals, planarity, cert = _grid_knn_rows(Q, Xf, grid, r, cfg)
+    failed = read_nonzero(~cert)
+    n_failed = failed.shape[0]
+    _log.debug("grid-kNN prologue: r=%.6g, r_hi=%.6g, cap %d: %d/%d certified at r",
+               r, r_hi, cap, C - n_failed, C)
+    if n_failed and r < r_hi:
+        # Round 2 against the dense patch, priced as the JAX package prices
+        # both (its blocks padded to a power of two of at least 512 rows),
+        # so that both packages take the same branch: the r_hi grid's cap
+        # grows with the cell volume, so a long tail can be cheaper dense.
+        blk2_est = max(512, 1 << (n_failed - 1).bit_length())
+        regrid_est = (Xf.shape[0] / device_policy.GPU_SORT_ELEMS_PER_SEC
+                      + blk2_est * 27.0 * cap_hi_est * 3.0 / gather_rate)
+        blk_cap = knn_block if knn_block > 0 else C
+        dense_rows = sum(max(512, 1 << (min(blk_cap, n_failed - s) - 1).bit_length())
+                         for s in range(0, n_failed, blk_cap))
+        dense_est = dense_rows * float(Xf.shape[0]) / knn_rate
+        if dense_est < regrid_est:
+            _log.info(
+                "grid-kNN prologue: %d/%d uncertified at r=%.4g -> dense "
+                "patch directly (priced %.1f s vs %.1f s regrid)",
+                n_failed, C, r, dense_est, regrid_est,
+            )
+            r = r_hi  # the dense patch takes the tail
+    if n_failed and r < r_hi:
+        _log.info(
+            "grid-kNN prologue: %d/%d uncertified at r=%.4g -> regrid at "
+            "r_hi=%.4g", n_failed, C, r, r_hi,
+        )
+        nb, pb, cb = _grid_knn_rows(Q[failed], Xf, _grid_with_cap(Xf, r_hi, 0), r_hi, cfg)
+        normals[failed] = torch.where(cb[:, None], nb, normals[failed])
+        planarity[failed] = torch.where(cb, pb, planarity[failed])
+        failed = failed[read_nonzero(~cb)]
+        n_failed = failed.shape[0]
+    if n_failed:
+        _log.info(
+            "grid-kNN prologue: %d/%d uncertified rows -> dense recompute",
+            n_failed, C,
+        )
+        blk_cap = knn_block if knn_block > 0 else C
+        for s in range(0, n_failed, blk_cap):
+            rows = failed[s:s + blk_cap]
+            normals[rows], planarity[rows] = _dense_knn_rows(Q[rows], Xf, cfg)
+    return normals, planarity
+
+
+def _synced(t: torch.Tensor) -> torch.Tensor:
+    """t, after the device has finished it (for a timing line)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return t
+
+
+def _knn_normals(Q: torch.Tensor, Xf: torch.Tensor, cfg: IcpConfig,
+                 knn_block: int = 0, knn_grid: bool = False):
+    """The normals and planarity of one pair's selected points Q (1, C, 3)
+    in its fixed cloud Xf (nf, 3), as the plan splits them: the grid k-NN
+    cascade first with ``knn_grid``, else (or when it is uneconomical)
+    dense blocks of ``knn_block`` rows; with neither, one k-NN call. Bit
+    for bit the same every way."""
+    if not (knn_block or knn_grid):
+        return _normals_stage(Q, Xf[None], None, None, None, cfg=cfg)
+    dbg = _log.isEnabledFor(logging.DEBUG)
+    normals = planarity = None
+    if knn_grid:
+        t0 = time.perf_counter()
+        normals, planarity = _knn_grid_normals(Q[0], Xf, cfg, knn_block)
+        if dbg:
+            if normals is not None:
+                _synced(normals)
+            _log.debug("timing: chunked prologue grid-kNN normals %.2f s%s",
+                       time.perf_counter() - t0,
+                       "" if normals is not None else " (uneconomical, fallback)")
+    if normals is None:
+        t0 = time.perf_counter()
+        normals, planarity = _dense_knn_blocks(Q[0], Xf, cfg, knn_block)
+        if dbg:
+            _synced(normals)
+            _log.debug("timing: chunked prologue dense-kNN blocks %.2f s",
+                       time.perf_counter() - t0)
+    return normals[None], planarity[None]
+
+
+# Stall check of chunked dispatch: a chunk whose wall time exceeds
+# _STALL_FACTOR times its estimate plus _STALL_SLACK_S (estimates above
+# _STALL_MIN_EST_S only; shorter chunks are launch-bound) is reported as a
+# degraded window (a throttled or shared card). stall_policy="wait" then
+# holds the next chunk until a fresh-shape probe subprocess answers within
+# _STALL_WAIT_PROBE_TIMEOUT_S, retrying every _STALL_WAIT_SLEEP_S for up to
+# _STALL_WAIT_BUDGET_S before it proceeds into the window. The JAX
+# package's values.
+_STALL_FACTOR = 4.0
+_STALL_SLACK_S = 5.0
+_STALL_MIN_EST_S = 0.5
+_STALL_WAIT_PROBE_TIMEOUT_S = 120.0
+_STALL_WAIT_SLEEP_S = 30.0
+_STALL_WAIT_BUDGET_S = 1800.0
+
+
+def _chunk_per_iter_estimate(cfg: IcpConfig, nf: int, nm: int,
+                             has_normals: bool, device: torch.device) -> float:
+    """Estimated card seconds of one iteration, for the stall check: 0.0
+    for a run on the CPU (no check there). Module-level, so that tests can
+    monkeypatch an estimate and drive the stall paths on the CPU."""
+    if device.type != "cuda":
+        return 0.0
+    return device_policy.estimate_gpu_stage_seconds(
+        nf, nm, correspondences=cfg.correspondences, neighbors=cfg.neighbors,
+        match_method=cfg.match_method, match_cell_cap=cfg.match_cell_cap,
+        has_normals=has_normals,
+    )[3]
+
+
+def _wait_for_healthy_window(log) -> float:
+    """stall_policy="wait": block until the card answers a fresh-shape
+    probe (``device_policy.probe_default_backend``, a subprocess, so a hung
+    card cannot hang this process), or until the wait budget runs out.
+    Returns the seconds waited. The carry stays on the card untouched, so
+    waiting changes no result."""
+    t0 = time.monotonic()
+    deadline = t0 + _STALL_WAIT_BUDGET_S
+    attempt = 0
+    while True:
+        attempt += 1
+        status, _backend, psec = device_policy.probe_default_backend(
+            _STALL_WAIT_PROBE_TIMEOUT_S)
+        log.info("stall probe %d: %s in %.1f s", attempt, status, psec)
+        if status == "ok":
+            return time.monotonic() - t0
+        # the next attempt's sleep and probe must fit the budget too
+        if time.monotonic() + _STALL_WAIT_SLEEP_S + _STALL_WAIT_PROBE_TIMEOUT_S >= deadline:
+            log.warning(
+                "stall_policy='wait': no healthy probe within the %.0f s "
+                "budget; proceeding into the degraded window.",
+                _STALL_WAIT_BUDGET_S,
+            )
+            return time.monotonic() - t0
+        time.sleep(_STALL_WAIT_SLEEP_S)
+
+
+def _run_chunked(c: _Carry, chunk_iters: int, run_chunk, *, cfg: IcpConfig,
+                 per_iter_est: float) -> _Carry:
+    """Chunked dispatch of the ICP loop: ``run_chunk(carry, it_hi)`` runs
+    the loop from the carry up to iteration it_hi, K = ``chunk_iters`` at a
+    time, until the loop's entry test fails or max_iterations is reached.
+    The carry stays on the device; the chunk's end is read from the flag
+    the loop reads anyway (no extra host read). After each chunk but the
+    first, the stall check compares its wall time with ``per_iter_est``
+    seconds an iteration (0: no check) and acts on ``cfg.stall_policy``.
+    Returns the final carry."""
+    T = cfg.max_iterations
+    K = max(1, int(chunk_iters))
+    stall_wait_total = 0.0
+    first_chunk = True
+    while True:
+        it_before = c.it
+        t0 = time.perf_counter()
+        c = run_chunk(c, min(T, it_before + K))
+        done = not c.go or c.it >= T
+        chunk_wall = time.perf_counter() - t0
+        n_ran = max(c.it - it_before, 1)
+        _log.debug("timing: chunk iterations %d-%d %.2f s", it_before, c.it, chunk_wall)
+        est = n_ran * per_iter_est
+        if (per_iter_est > 0 and est > _STALL_MIN_EST_S and not first_chunk
+                and chunk_wall > _STALL_FACTOR * est + _STALL_SLACK_S):
+            # the first chunk is left out: it carries the process's first
+            # launches and kernel loads
+            if cfg.stall_policy == "wait":
+                action = ("Holding the next chunk until a probe answers "
+                          "healthy (stall_policy='wait')." if not done else
+                          "Final chunk — nothing left to hold "
+                          "(stall_policy='wait').")
+            else:
+                action = "The run continues and stays correct (stall_policy='warn')."
+            _log.warning(
+                "chunk of %d iterations took %.1f s against an estimate of "
+                "%.1f s (%.0fx) — the card is likely throttled or shared (a "
+                "degraded window). %s Wall times measured now are not "
+                "representative.",
+                n_ran, chunk_wall, est, chunk_wall / max(est, 1e-9), action,
+            )
+            if cfg.stall_policy == "wait" and not done:
+                waited = _wait_for_healthy_window(_log)
+                stall_wait_total += waited
+                _log.warning(
+                    "stall_policy='wait': held dispatch %.0f s (cumulative "
+                    "stall-wait %.0f s this run); resuming at iteration %d "
+                    "with the carry on the card.",
+                    waited, stall_wait_total, c.it,
+                )
+        first_chunk = False
+        if done:
+            break
+    if stall_wait_total > 0:
+        _log.warning(
+            "registration finished; total stall-wait %.0f s across degraded "
+            "windows (stall_policy='wait').", stall_wait_total,
+        )
+    return c
+
+
 class FixedPrep(NamedTuple):
     """The fixed cloud's share of an ungated registration, computed once
     (``prepare_fixed``) for any number of registrations against it
@@ -892,12 +1372,13 @@ def prepare_fixed(
     normals come from the same stage (``_normals_stage``): one launch of
     the k-NN kernel over all ``correspondences`` queries on the card, or
     the user's normals gathered at the selection. So a registration with
-    the preparation equals the self-contained one bit for bit. The JAX
-    package sizes this k-NN by its TPU program-time budget (query blocks,
-    or its grid k-NN cascade); here there is no such budget
-    (``program_budget_s`` has no effect) and the k-NN kernel takes any
-    query count in one launch. The JAX blocks and cascade are exact, so the
-    results agree.
+    the preparation equals the self-contained one bit for bit. On the card
+    the k-NN is priced against ``program_budget_s`` as the JAX package
+    prices it (``device_policy`` card rates): above 0.9 of the budget it
+    runs in query blocks, above half of it through the grid k-NN cascade
+    first (``_knn_grid_normals``), and a single 2048-row block over 0.9 of
+    the budget raises ValueError. Blocks and cascade are exact, so the
+    preparation is the same bit for bit.
 
     Args:
         X_fix: (nf, 3) fixed cloud; the same cloud goes to the consuming
@@ -932,10 +1413,35 @@ def prepare_fixed(
     if normals_fix is not None:
         normals_fix, planarity_fix = (t[None] for t in _user_normals(
             normals_fix, planarity_fix, nf, dtype, dev))
-    normals, planarity = _normals_stage(Q, Xf[None], sel_idx, normals_fix,
-                                        planarity_fix, cfg=cfg)
+        normals, planarity = _normals_stage(Q, Xf[None], sel_idx, normals_fix,
+                                            planarity_fix, cfg=cfg)
+    else:
+        normals, planarity = _knn_normals(Q, Xf, cfg, *_plan_prepared_knn(cfg, nf, dev))
     return FixedPrep(Q[0], normals[0], planarity[0], sel_idx[0], sel_valid[0], nf, C,
                      cfg.neighbors, cfg.approx_knn)
+
+
+def _plan_prepared_knn(cfg: IcpConfig, nf: int, dev: torch.device):
+    """(knn_block, knn_grid) of ``prepare_fixed``'s k-NN, planned as the
+    JAX package plans it with the card's rates when ``program_budget_s`` >
+    0 and the cloud is on the card, else (0, False): one k-NN call."""
+    budget = cfg.program_budget_s
+    if budget <= 0 or dev.type != "cuda":
+        return 0, False
+    C = cfg.correspondences
+    _, knn_s, _, _ = device_policy.estimate_gpu_stage_seconds(
+        nf, 1, correspondences=C, neighbors=cfg.neighbors, has_normals=False)
+    knn_atom_s = min(knn_s, knn_s * 2048.0 / max(C, 1))
+    if knn_atom_s > budget * 0.9:
+        raise ValueError(
+            f"preparing this fixed cloud is estimated at ~{knn_atom_s:.3g} s "
+            "of card time for ONE minimal k-NN query block, over "
+            f"program_budget_s={budget:g}. Reduce `neighbors`, prepare on "
+            "device='cpu', or raise or disable (0) program_budget_s."
+        )
+    if knn_s <= budget * 0.9:
+        return 0, False
+    return _knn_block_rows(budget, knn_s, C), knn_s > budget * 0.5
 
 
 def _same_device(t: torch.Tensor, dev: torch.device) -> bool:
@@ -1006,9 +1512,11 @@ def icp_register(
     Args:
         X_fix: (nf, 3) fixed cloud (numpy array or tensor).
         X_mov: (nm, 3) movable cloud.
-        cfg: pipeline configuration. Settings this package does not run yet
-            (chunked dispatch) raise NotImplementedError; none is ignored.
-            ``warm_start=True`` runs a coarse registration first
+        cfg: pipeline configuration. ``dispatch`` and ``program_budget_s``
+            plan the run on the card (``_plan_dispatch``: monolithic, or
+            chunked with the normals k-NN in blocks or through the grid
+            k-NN cascade; the same result every way); on the CPU "auto" is
+            monolithic. ``warm_start=True`` runs a coarse registration first
             (``plan_warm_start``). The grid engines count their cell caps
             on the host for a numpy movable cloud and on its device for a
             tensor (one host read each), as the JAX package does.
@@ -1045,9 +1553,11 @@ def icp_register(
 
 def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
                   rbp_observation_weights, normals_fix, planarity_fix,
-                  planarity_mov, fixed_prep, device, dtype):
+                  planarity_mov, fixed_prep, device, dtype, plan=None):
     """``icp_register``, also returning the loop's final state (whose
-    ``m_idx`` holds the last iteration's matches)."""
+    ``m_idx`` holds the last iteration's matches). ``plan`` (a
+    ``DispatchPlan``) replaces the planner's, as a test forces a split
+    prologue."""
     dev, dtype = resolve(device, dtype)
     # A movable cloud that came as numpy has the grid engines count their
     # cell caps on the host, as in the JAX package; a tensor, on its device.
@@ -1066,11 +1576,10 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
                                                    Xf.shape[0], dtype, dev)
     if planarity_mov is not None:
         planarity_mov = _as_tensor(planarity_mov, dtype, dev)
-    # Resolved before the warm start, so that a setting this package does
-    # not run yet raises before the coarse pass does any work. The coarse
-    # pass sets its own matcher and gate, so it runs as from the unresolved
-    # config.
+    # The coarse pass of a warm start sets its own matcher and gate, so it
+    # runs as from the unresolved config.
     cfg = _resolve_engines(cfg, Xf.shape[0], Xm.shape[0])
+    warm_requested = cfg.warm_start
     if cfg.warm_start:
         cfg, rbp_observed_values = plan_warm_start(
             Xf, Xm, cfg, rbp_observed_values=rbp_observed_values,
@@ -1086,18 +1595,41 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
              else _as_tensor(rbp_observation_weights, dtype, dev))
 
     H0 = rbp_to_H(obs_vals)
+    nf, nm = Xf.shape[0], Xm.shape[0]
+    has_normals = normals_fix is not None or fixed_prep is not None
+    # The grid matcher's cell list is built once, before the planner
+    # prices an iteration with its cap; every iteration and chunk queries it.
+    match_grid = _match_grid(Xm, cfg, mov_host) if cfg.match_method == "grid" else None
+    plan_cfg = (cfg if match_grid is None
+                else dataclasses.replace(cfg, match_cell_cap=match_grid[1]))
+    if plan is None:
+        plan = _plan_dispatch(
+            plan_cfg, nf, nm, guarded=cfg.program_budget_s > 0 and dev.type == "cuda",
+            has_normals=has_normals,
+            gate_pairs=(float(nf) * nm if cfg.overlap_enabled and cfg.gate_method == "brute"
+                        else 0.0),
+            warm_requested=warm_requested,
+            obs=(rbp_observed_values, rbp_observation_weights),
+        )
+    chunked = plan.dispatch == "chunked"
     # The gate sees the pair itself; the stages after it and the loop are
     # the batch's, on a batch of one.
     Xf1, Xm1 = Xf[None], Xm[None]
     if fixed_prep is None:
+        t0 = time.perf_counter()
         sel_idx, sel_valid, error0 = (
             x[None] for x in _gate_select_stages(Xf, Xm, H0, cfg=cfg, mov_host=mov_host,
                                                  obs_host=rbp_observed_values))
         Q = _rows(Xf1, sel_idx)
+        if chunked and _log.isEnabledFor(logging.DEBUG):
+            _synced(Q)
+            _log.debug("timing: chunked prologue gate/select %.2f s",
+                       time.perf_counter() - t0)
         if normals_fix is not None:
-            normals_fix, planarity_fix = normals_fix[None], planarity_fix[None]
-        normals, planarity = _normals_stage(Q, Xf1, sel_idx, normals_fix,
-                                            planarity_fix, cfg=cfg)
+            normals, planarity = _normals_stage(Q, Xf1, sel_idx, normals_fix[None],
+                                                planarity_fix[None], cfg=cfg)
+        else:
+            normals, planarity = _knn_normals(Q, Xf, cfg, plan.knn_block, plan.knn_grid)
     else:
         Q, normals, planarity, sel_idx, sel_valid = (t[None] for t in fixed_prep[:5])
         error0 = np.full(1, ERR_OK, np.int32)
@@ -1107,12 +1639,20 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
         def mov_planarity_fn(m_idx):
             return _rows(planarity_mov[None], m_idx)
 
-    final, uncertainties, covariance = run_icp_loop(
-        Q, normals, planarity, sel_valid, obs_vals[None], obs_w[None], cfg, dtype,
-        error0, H0[None], _make_match_fn(Q, Xm1, cfg, mov_host),
-        lambda m_idx: _rows(Xm1, m_idx),
-        mov_planarity_fn=mov_planarity_fn,
+    loop_args = (Q, normals, planarity, sel_valid, obs_vals[None], obs_w[None], cfg,
+                 dtype, error0, H0[None], _make_match_fn(Q, Xm1, cfg, grid=match_grid), None)
+    # A monolithic run is one chunk of max_iterations: the same loop, reads
+    # and launches, and no stall check (the first chunk is never checked).
+    final = _run_chunked(
+        make_carry_init(cfg, dtype, obs_vals[None], H0[None], error0),
+        plan.chunk_iterations if chunked else cfg.max_iterations,
+        lambda c, hi: run_icp_loop(*loop_args, mov_planarity_fn=mov_planarity_fn,
+                                   carry_in=c, it_hi=hi)[0],
+        cfg=cfg,
+        per_iter_est=_chunk_per_iter_estimate(plan_cfg, nf, nm, has_normals, dev),
     )
+    uncertainties, covariance = _uncertainties(
+        final, Q, normals, obs_vals[None], obs_w[None], lambda m_idx: _rows(Xm1, m_idx))
     result = _result_from_carry(
         final, uncertainties, covariance, sel_idx, sel_valid, normals,
         planarity,

@@ -124,7 +124,8 @@ def test_run_user_normals_and_movable_planarity(logs):
 def test_run_exceptions_match_jax():
     """No overlap, too few correspondences, bad arguments and a run without
     clouds raise SimpleICPException with the JAX package's messages; a
-    sharded run raises NotImplementedError naming its ROADMAP item."""
+    sharded run raises NotImplementedError naming its ROADMAP item;
+    chunked dispatch runs and gives the monolithic H."""
     X_fix, X_mov, _ = _pair(704, n=800)
     cases = [
         dict(max_overlap_distance=0.5, rbp_observed_values=(0, 0, 0, 40.0, 0, 0),
@@ -150,8 +151,16 @@ def test_run_exceptions_match_jax():
     icp.add_point_clouds(T.PointCloud(X_fix), T.PointCloud(X_mov))
     with pytest.raises(NotImplementedError, match="item 14"):
         icp.run(num_devices=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        icp.run(dispatch="chunked")
+    # chunked dispatch runs: the same H as the monolithic run, bit for bit
+    # (a run adds normal columns to pc1, so each run gets its own clouds)
+    H = []
+    for kw in (dict(dispatch="monolithic"),
+               dict(dispatch="chunked", chunk_iterations=1, stall_policy="wait",
+                    program_budget_s=0.5)):
+        icp = T.SimpleICP(verbose=False, **F64)
+        icp.add_point_clouds(T.PointCloud(X_fix), T.PointCloud(X_mov))
+        H.append(icp.run(**kw)[0])
+    np.testing.assert_array_equal(H[1], H[0])
 
 
 def test_pointcloud_ops_match_jax():

@@ -34,14 +34,14 @@ def test_flag_names_match_reference_contract():
 
 
 def test_flags_and_presets_equal_the_jax_cli():
-    """Every flag of the JAX CLI with its default, except --device (cuda or
-    cpu, no auto routing) and --probe-timeout (no health probe), plus
-    --dtype; the preset table is the same."""
+    """Every flag of the JAX CLI with its default, except --device (cuda,
+    cpu or auto; cuda by default), plus --dtype; the preset table is the
+    same."""
     def flags(parser):
         return {a.dest: (tuple(a.option_strings), a.default) for a in parser._actions}
 
     j, t = flags(jax_parser()), flags(build_parser())
-    assert set(j) - set(t) == {"probe_timeout"}
+    assert set(j) - set(t) == set()
     assert set(t) - set(j) == {"dtype"}
     for dest in set(j) & set(t) - {"device", "help", "version"}:
         assert t[dest] == j[dest], dest
@@ -49,9 +49,9 @@ def test_flags_and_presets_equal_the_jax_cli():
     a = build_parser().parse_args(["-f", "a", "-m", "b", "--preset", "julia",
                                    "--std_ddof", "0"])
     assert a.preset == "julia" and a.std_ddof == 0
-    for bad in ("auto", "tpu"):
-        with pytest.raises(SystemExit):
-            build_parser().parse_args(["-f", "a", "-m", "b", "--device", bad])
+    assert build_parser().parse_args(["-f", "a", "-m", "b", "--device", "auto"]).device == "auto"
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["-f", "a", "-m", "b", "--device", "tpu"])
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +100,6 @@ def test_cli_float32_and_log_lines(xyz_pair, caplog):
 
 UNPORTED_FLAGS = {
     "num_devices": (["--num-devices", "2"], "item 14"),
-    "chunked": (["--dispatch", "chunked"], "item 12"),
 }
 
 
@@ -118,15 +117,17 @@ PORTED_FLAGS = {
     "approx_knn": ["--approx-knn"],
     "gate_grid": ["--gate-method", "grid"],
     "match_grid": ["--match-method", "grid"],
+    "chunked": ["--dispatch", "chunked", "--chunk-iterations", "2"],
 }
 
 
 @pytest.mark.parametrize("name", list(PORTED_FLAGS))
 def test_serving_flags_equal_the_jax_cli(xyz_pair, name):
     """--warm-start (the 2500-point clouds above the lowered
-    --warm-start-points, so the coarse pass runs), --approx-knn and the grid
+    --warm-start-points, so the coarse pass runs), --approx-knn, the grid
     engines (--gate-method grid, --match-method grid with the gate's radius)
-    run: the exported cloud equals the JAX CLI's with the same flags."""
+    and chunked dispatch (--dispatch chunked, 2 iterations a chunk) run:
+    the exported cloud equals the JAX CLI's with the same flags."""
     d, f1, f2 = xyz_pair
     common = ["-f", str(f1), "-m", str(f2), "-o", "0.25", "-c", "300", "--quiet",
               "--device", "cpu", *PORTED_FLAGS[name]]

@@ -1,5 +1,5 @@
 """The port's IcpConfig against the JAX package's: the same fields,
-defaults and validation; config_from_dict; refusal of unported settings."""
+defaults and validation; config_from_dict; every setting runs."""
 
 import dataclasses
 import math
@@ -71,20 +71,6 @@ def test_config_from_dict_round_trip():
 
 
 _X = np.random.default_rng(0).uniform(0, 1, (50, 3))
-
-UNPORTED = {
-    "chunked": (dict(dispatch="chunked"), {}),
-}
-
-
-@pytest.mark.parametrize("name", list(UNPORTED))
-def test_unported_settings_raise(name):
-    cfg_kw, call_kw = UNPORTED[name]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        icp_register(_X, _X, IcpConfig(correspondences=10, **cfg_kw),
-                     device="cpu", **call_kw)
-
-
 _N = np.column_stack([np.zeros(50), np.zeros(50), np.ones(50)])
 
 PORTED = {
@@ -96,17 +82,32 @@ PORTED = {
     "normals_fix": ({}, dict(normals_fix=_N)),
     "planarity_fix": ({}, dict(normals_fix=_N, planarity_fix=np.ones(50))),
     "planarity_mov": ({}, dict(planarity_mov=np.ones(50))),
+    "chunked": (dict(dispatch="chunked", chunk_iterations=2), {}),
 }
 
 
 @pytest.mark.parametrize("name", list(PORTED))
 def test_ported_settings_run(name):
     """Settings that the first slice refused and later slices run (the
-    gated slice; the grid engines)."""
+    gated slice; the grid engines; chunked dispatch, which must also give
+    the JAX package's chunked result: iterations, selection, H within
+    1e-9)."""
     cfg_kw, call_kw = PORTED[name]
     res = icp_register(_X, _X + 0.01, IcpConfig(correspondences=10, **cfg_kw),
                        device="cpu", **call_kw)
     assert bool(np.isfinite(res.H.numpy()).all())
+    if name == "chunked":
+        import jax.numpy as jnp
+
+        from simpleicp_tpu import icp_register as jax_register
+
+        ref = icp_register(_X, _X + 0.01, IcpConfig(correspondences=10, **cfg_kw),
+                           device="cpu", dtype=torch.float64)
+        jres = jax_register(_X, _X + 0.01, JaxConfig(correspondences=10, **cfg_kw),
+                            dtype=jnp.float64)
+        assert int(ref.n_iterations) == int(jres.n_iterations)
+        assert np.array_equal(ref.sel_idx.numpy(), np.asarray(jres.sel_idx))
+        np.testing.assert_allclose(ref.H.numpy(), np.asarray(jres.H), rtol=0, atol=1e-9)
 
 
 def _serving_case(name):
@@ -165,8 +166,9 @@ def test_gated_jax_config_converts_and_runs():
 
 
 def test_tpu_only_fields_change_nothing():
-    """query_tile, ref_tile, use_pallas, program_budget_s and stall_policy
-    are accepted and change no result."""
+    """query_tile, ref_tile and use_pallas are accepted and change no
+    result; nor do program_budget_s, stall_policy and dispatch on the CPU,
+    where the planner is unguarded and no stall is checked."""
     rng = np.random.default_rng(1)
     X = rng.uniform(-1, 1, (600, 3)) * [1, 1, 0.1]
     base = icp_register(X, X + 0.01, IcpConfig(correspondences=50), device="cpu")

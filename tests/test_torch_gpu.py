@@ -899,3 +899,98 @@ def test_grid_engines_icp_register_on_the_card(cuda, engine):
     t = run(cuda, torch.as_tensor(X_mov, device=cuda))[0]
     assert sync.host_reads() == from_numpy + 1
     assert torch.equal(t.H, g.H)
+
+
+@pytest.mark.parametrize("case", ["K=1", "K=3", "gated K=2", "grid K=2"])
+def test_chunked_equals_monolithic_on_the_card(cuda, case):
+    """Chunked dispatch on the card, float32, at 20k: every result field and
+    the last matches equal to the monolithic run's, with the same kernel
+    launches and host reads."""
+    import dataclasses
+
+    from simpleicp_tpu_torch import IcpConfig
+    from simpleicp_tpu_torch.models.icp import _icp_register
+    from simpleicp_tpu_torch.ops import knn_cuda
+    from simpleicp_tpu_torch.utils import sync
+
+    rng = np.random.default_rng(17)
+
+    def surface(n, lo, hi):
+        xy = np.column_stack([rng.uniform(lo, hi, n), rng.uniform(-2, 2, n)])
+        return np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+
+    X_fix, X_mov = surface(20000, -2, 2), surface(20000, -1, 3) + [0.02, -0.01, 0.01]
+    kw = {"gated K=2": dict(max_overlap_distance=0.1),
+          "grid K=2": dict(match_method="grid", match_radius=0.1)}.get(case, {})
+    cfg = IcpConfig(correspondences=2000, **kw)
+    k = int(case[-1])
+
+    def run(c):
+        knn_cuda.reset_launch_counts()
+        sync.reset_host_reads()
+        out = _icp_register(
+            X_fix, X_mov, c, rbp_observed_values=None, rbp_observation_weights=None,
+            normals_fix=None, planarity_fix=None, planarity_mov=None, fixed_prep=None,
+            device=cuda, dtype=torch.float32)
+        return out, dict(knn_cuda.LAUNCHES), sync.host_reads()
+
+    (mono, mono_c), mono_l, mono_r = run(cfg)
+    (res, res_c), res_l, res_r = run(dataclasses.replace(cfg, dispatch="chunked",
+                                                         chunk_iterations=k))
+    assert int(mono.error_code) == 0 and int(mono.n_iterations) > k
+    for f in mono._fields:
+        assert torch.equal(getattr(res, f), getattr(mono, f)), f
+    assert torch.equal(res_c.m_idx, mono_c.m_idx)
+    assert res_l == mono_l and res_r == mono_r
+
+
+def _cascade_case(kind, C, rng):
+    """(Xf, query indices) forcing one branch of the grid k-NN cascade at C
+    queries (the constructions of tests/test_torch_chunked.py, with the
+    sample's stride C // 1024): sparse queries the radius sample skips (a
+    dense patch), or sees (a round-2 regrid)."""
+    stride = C // 1024
+    n_side = 224 if kind == "dense_patch" else 180
+    g = np.stack(np.meshgrid(np.arange(n_side), np.arange(n_side)), -1).reshape(-1, 2)
+    dense = np.column_stack([g * 0.01, 0.001 * np.sin(g.sum(1))])
+    q_idx = np.linspace(0, dense.shape[0] - 1, C).astype(int)
+    if kind == "dense_patch":
+        sparse = rng.uniform(50.0, 60.0, size=(40, 3))
+        for j in range(sparse.shape[0]):
+            q_idx[stride * j + 1] = dense.shape[0] + j
+    else:
+        gs = np.stack(np.meshgrid(np.arange(40), np.arange(40)), -1).reshape(-1, 2)
+        sparse = np.column_stack([gs * 0.12 + 10.0, 0.01 * np.cos(gs.sum(1))])
+        for j in range(400):
+            q_idx[2 * stride * j + stride] = dense.shape[0] + (j % sparse.shape[0])
+    return np.vstack([dense, sparse]), q_idx
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["regrid", "dense_patch"])
+def test_knn_grid_normals_on_the_card(cuda, kind, dtype, monkeypatch, caplog):
+    """The grid k-NN cascade on the card at C=8192, its k-NN rates lowered
+    so that the grid plan is economical on these small clouds, with a
+    forced round-2 regrid or a forced dense patch: the normals and
+    planarity bit-equal to the dense k-NN's on the card."""
+    import logging
+
+    from simpleicp_tpu_torch import IcpConfig
+    from simpleicp_tpu_torch.models import icp
+    from simpleicp_tpu_torch.utils import device_policy
+
+    monkeypatch.setattr(device_policy, "GPU_KNN10_PAIRS_PER_SEC", 1e7)
+    monkeypatch.setattr(device_policy, "GPU_GATHER_ELEMS_PER_SEC", 1e8)
+    monkeypatch.setattr(device_policy, "GPU_SORT_ELEMS_PER_SEC", 2.5e7)
+    C = 8192
+    X, q_idx = _cascade_case(kind, C, np.random.default_rng(19))
+    Xf = torch.as_tensor(X, dtype=dtype, device=cuda)
+    Q = Xf[torch.as_tensor(q_idx, device=cuda)]
+    cfg = IcpConfig(correspondences=C)
+    with caplog.at_level(logging.INFO, "simpleicp_tpu_torch.models.icp"):
+        normals, planarity = icp._knn_grid_normals(Q, Xf, cfg, 2048)
+    lines = [r.getMessage() for r in caplog.records]
+    assert normals is not None, "grid plan unexpectedly uneconomical"
+    assert any(("regrid" if kind == "regrid" else "dense recompute") in m for m in lines), lines
+    dn, dp = icp._dense_knn_rows(Q, Xf, cfg)
+    assert torch.equal(normals, dn) and torch.equal(planarity, dp)

@@ -357,21 +357,35 @@ def test_preparation_on_another_device_is_refused():
         icp_register(Xf, Xm, cfg, fixed_prep=moved, **F64)
 
 
-# Prepared cases of tests/test_prepared.py whose engines are not ported: they
-# keep raising their ROADMAP item.
+# Prepared cases of tests/test_prepared.py whose engines were not ported and
+# raised their ROADMAP item; chunked dispatch (item 12) is ported now.
 UNPORTED = {
-    "chunked": (dict(dispatch="chunked", chunk_iterations=2), "item 12"),
+    "chunked": dict(dispatch="chunked", chunk_iterations=2),
 }
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_prepared_cases_raise(name):
-    kw, item = UNPORTED[name]
+    """The formerly refused prepared cases run (tests/test_prepared.py::
+    test_prepared_chunked_dispatch): bit-equal to the prepared monolithic
+    run and to the self-contained chunked run, and equal to the JAX
+    package's prepared chunked run (iterations, selection; H within
+    1e-9)."""
+    kw = UNPORTED[name]
     Xf, Xm = _pair(24, 2000, 2000)
     cfg = IcpConfig(correspondences=200)
     prep = prepare_fixed(Xf, cfg, **F64)
-    with pytest.raises(NotImplementedError, match=item):
-        icp_register(Xf, Xm, dataclasses.replace(cfg, **kw), fixed_prep=prep, **F64)
+    res = icp_register(Xf, Xm, dataclasses.replace(cfg, **kw), fixed_prep=prep, **F64)
+    for other in (icp_register(Xf, Xm, cfg, fixed_prep=prep, **F64),
+                  icp_register(Xf, Xm, dataclasses.replace(cfg, **kw), **F64)):
+        for f in res._fields:
+            assert torch.equal(getattr(res, f), getattr(other, f)), f
+    jcfg = JaxConfig(correspondences=200, **kw)
+    jres = jax_register(Xf, Xm, jcfg, fixed_prep=jax_prepare_fixed(Xf, jcfg, dtype=jnp.float64),
+                        dtype=jnp.float64)
+    assert int(res.n_iterations) == int(jres.n_iterations)
+    assert np.array_equal(res.sel_idx.numpy(), np.asarray(jres.sel_idx))
+    np.testing.assert_allclose(res.H.numpy(), np.asarray(jres.H), rtol=0, atol=1e-9)
 
 
 def test_prepared_grid_matcher_equals_self_contained_and_jax():
