@@ -17,9 +17,10 @@ Phases, each printing one JSON object on a line of its own:
            the dilation up to the largest reach it takes (18). Tolerance:
            none, indices equal and d2 bit-equal;
   main     icp_register at 100 000 x 100 000 (default config): float32 on the
-           card recovers the known motion; float64 on the card equals float64
-           on the CPU (plain versions) in iterations, selection, last
-           matches and H (1e-9); the launch counts prove both kernels ran;
+           card recovers the known motion; at 50 000 x 50 000 float64 on the
+           card equals float64 on the CPU (plain versions) in iterations,
+           selection, last matches and H (1e-9); the launch counts prove
+           both kernels ran;
   scale    icp_register at 1 340 000 x 1 340 000, float32, on the card; the
            match and k-NN kernels bit-equal to their plain versions on that
            run's selection and final H;
@@ -104,6 +105,24 @@ Phases, each printing one JSON object on a line of its own:
            (medians of 3, in turns), registrations per second, launches,
            host reads, and all launches and device busy time
            (torch.profiler) of the batch and of one of its registrations;
+  sharded  the sharded registration (parallel/), float32 on the card, each
+           run against icp_register on the card (iterations, error code,
+           selection and last matches equal, H within 1e-6, 0 expected):
+           world 1 in this process over NCCL (launch.run(1, ...)) on the
+           1.34M pair, the gated 1M pair with the ring and the all-gather
+           gate, the dilate 1.2M pair (gate "auto": rank 0 computes the
+           dilate mask), the 1.34M map prepared (prepare_fixed, C=1000) and
+           the gated 100k pair monolithic and chunked at K=2 (equal, with
+           the same host reads); world 2 as two processes sharing the card
+           (initialize_multihost over gloo, which stages every collective
+           through host memory) on the 1.34M pair, the gated 1M pair (ring)
+           and the gated 100k pair with the grid gate and the grid matcher,
+           the two ranks bit-equal. Wall times (medians of 3) beside the
+           single-card run's, per rank kernel launches (the match, k-NN and
+           d2-only 1-NN on every rank, the dilation on rank 0), host reads,
+           collectives by kind and per iteration, staged bytes. World 2
+           shares one card: its times measure correctness and overhead, not
+           scaling;
   times    kernel times (CUDA events, warm L2; the match and the k-NN as
            CUDA-graph replays, so that the wrappers' host work does not set
            the pace) beside their bounds and the plain versions' times; the
@@ -141,7 +160,8 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "scale", "gated", "dilate",
-          "grid", "chunked", "policy", "cli", "serve", "batch", "times", "profile")
+          "grid", "chunked", "policy", "cli", "serve", "batch", "sharded", "times",
+          "profile")
 KERNELS = ("match_transform", "knn_search", "nn_search", "dilate")
 SOURCES = {
     "match_transform": "simpleicp_tpu_torch/csrc/knn.cu",
@@ -161,6 +181,11 @@ REPLACES = {
 # brute 1-NN; the float64 card-versus-CPU check of the gate at 20k (a CPU
 # brute gate at 100k takes minutes).
 N_MAIN = 100_000
+# The float64 card-versus-CPU check of the main path runs 100 iterations of
+# plain float64 on the host (float64 does not meet the relative criterion
+# on independent samples): 50 000 points, at the same density, keep it
+# near 90 s.
+N_MAIN_F64 = 50_000
 N_SCALE = 1_340_000
 N_GATE_BIG = 1_000_000
 N_GATE_F64 = 20_000
@@ -801,9 +826,10 @@ def phase_main(torch):
                        "translation_err": err, "launches": launches,
                        "host_reads": reads, "first_run_s": seconds}}
 
-    res_g, carry_g, launches_g, _, card_s = counted_run(torch, X_fix, X_mov, torch.float64)
+    A, B, t64 = cloud_pair(N_MAIN_F64, SEED + 1, N_MAIN_F64 / N_MAIN)
+    res_g, carry_g, launches_g, _, card_s = counted_run(torch, A, B, torch.float64)
     t0 = time.perf_counter()
-    res_c, carry_c = _register(torch, X_fix, X_mov, torch.float64, "cpu")
+    res_c, carry_c = _register(torch, A, B, torch.float64, "cpu")
     cpu_s = time.perf_counter() - t0
     n_g, n_c = int(res_g.n_iterations), int(res_c.n_iterations)
     check(n_g == n_c, f"float64 iterations: card {n_g}, CPU {n_c}")
@@ -811,9 +837,9 @@ def phase_main(torch):
     check(torch.equal(carry_g.m_idx.cpu(), carry_c.m_idx), "float64 last m_idx differ")
     dH = float((res_g.H.cpu() - res_c.H).abs().max())
     check(dH <= 1e-9, f"float64 H differs by {dH} > 1e-9")
-    err_g = check_recovery(res_g, t, "float64 100k card", converge=False)
+    err_g = check_recovery(res_g, t64, f"float64 {N_MAIN_F64} card", converge=False)
     out["float64_card_vs_cpu"] = {
-        "n_iterations": n_g, "converged": bool(res_g.converged),
+        "n_fix": N_MAIN_F64, "n_mov": N_MAIN_F64, "n_iterations": n_g, "converged": bool(res_g.converged),
         "translation_err": err_g, "sel_idx_equal": True,
         "last_m_idx_equal": True, "H_max_abs_diff": dH,
         "launches": launches_g, "card_run_s": card_s, "cpu_run_s": cpu_s,
@@ -2221,6 +2247,308 @@ def phase_batch(torch, cmp):
     return batch_launches
 
 
+# The sharded registration (simpleicp_tpu_torch/parallel/): world 1 in this
+# process over NCCL, world 2 as two processes sharing the one card over gloo
+# (NCCL refuses two ranks on one device). Each case: (clouds, config
+# kwargs); the clouds of the scale, gated, dilate and gated-100k cells.
+SHARD_REPS = 3
+SHARD_CLOUDS = {
+    "1.34M": lambda: cloud_pair(N_SCALE, SEED + 2, area_scale=N_SCALE / N_MAIN)[:2],
+    "gated 1M": lambda: partial_pair(N_GATE_BIG, SEED + 5, N_GATE_BIG / N_MAIN)[:2],
+    "dilate 1.2M": lambda: partial_pair(N_DILATE, SEED + 8, N_DILATE / N_MAIN)[:2],
+    "gated 100k": lambda: partial_pair(N_MAIN, SEED + 3)[:2],
+}
+SHARD_CASES = {
+    "ungated 1.34M": ("1.34M", {}),
+    "gated 1M ring": ("gated 1M", dict(max_overlap_distance=GATE_RADIUS)),
+    "gated 1M allgather": ("gated 1M", dict(max_overlap_distance=GATE_RADIUS,
+                                            gate_collective="allgather")),
+    "dilate 1.2M": ("dilate 1.2M", dict(max_overlap_distance=GATE_RADIUS)),
+    "prepared 1.34M": ("1.34M", {}),
+    "gated 100k": ("gated 100k", dict(max_overlap_distance=GATE_RADIUS)),
+    "gated 100k K=2": ("gated 100k", dict(max_overlap_distance=GATE_RADIUS,
+                                          dispatch="chunked", chunk_iterations=2)),
+    "grid 100k": ("gated 100k", dict(max_overlap_distance=GATE_RADIUS, gate_method="grid",
+                                     match_method="grid")),
+}
+SHARD_WORLD1 = ("ungated 1.34M", "gated 1M ring", "gated 1M allgather", "dilate 1.2M",
+                "prepared 1.34M", "gated 100k", "gated 100k K=2")
+SHARD_WORLD2 = ("ungated 1.34M", "gated 1M ring", "grid 100k")
+# Fields every rank must hold bit for bit (the replicated iteration record).
+SHARD_FIELDS = ("H", "n_iterations", "error_code", "sel_idx", "sel_valid", "iter_counts",
+                "iter_means", "iter_stds", "iter_ps")
+SHARD_DEVICE = "cuda"
+# The command line of a world-2 rank, after the interpreter.
+SHARD_WORKER = [str(Path(__file__).resolve())]
+
+
+def shard_clouds(cache, key):
+    if key not in cache:
+        cache[key] = SHARD_CLOUDS[key]()
+    return cache[key]
+
+
+def shard_run(case, clouds, mesh=None, prep=None):
+    """One float32 registration of a sharded-phase case: on ``mesh`` with
+    icp_register_sharded, or without it with icp_register (the single-card
+    reference). Returns (result, final loop state)."""
+    from simpleicp_tpu_torch import IcpConfig
+    from simpleicp_tpu_torch.models.icp import _icp_register
+    from simpleicp_tpu_torch.parallel.sharded import _icp_register_sharded
+
+    import torch
+
+    key, kw = SHARD_CASES[case]
+    X_fix, X_mov = shard_clouds(clouds, key)
+    args = dict(rbp_observed_values=None, rbp_observation_weights=None, normals_fix=None,
+                planarity_fix=None, planarity_mov=None, fixed_prep=prep,
+                device=SHARD_DEVICE, dtype=torch.float32)
+    if mesh is None:
+        return _icp_register(X_fix, X_mov, IcpConfig(**kw), **args)
+    return _icp_register_sharded(X_fix, X_mov, IcpConfig(**kw), mesh=mesh, **args)
+
+
+def shard_sync(torch):
+    if SHARD_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def shard_counted(torch, fn, mesh):
+    """fn() with the kernel launches, host reads and the mesh's collective
+    counts set to 0 just before and read just after."""
+    from simpleicp_tpu_torch.utils import sync
+
+    shard_sync(torch)
+    reset_counts()
+    sync.reset_host_reads()
+    mesh.counts.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    shard_sync(torch)
+    return out, {"seconds": time.perf_counter() - t0, "launches": read_counts(),
+                 "host_reads": sync.host_reads(), "collectives": dict(mesh.counts)}
+
+
+def shard_record(res, carry):
+    """The fields a sharded run is compared on, on the host."""
+    rec = {f: getattr(res, f).cpu().numpy() for f in SHARD_FIELDS}
+    rec["m_idx"] = carry.m_idx.cpu().numpy()
+    return rec
+
+
+def shard_compare(got, ref, what):
+    """A sharded run against the single-card run: iterations, error code,
+    selection and last matches equal, H within 1e-6 (its max difference
+    returned; 0 expected)."""
+    import numpy as np
+
+    for f in ("n_iterations", "error_code", "sel_idx", "sel_valid", "m_idx"):
+        check(np.array_equal(got[f], ref[f]), f"sharded {what}: {f} differs from icp_register")
+    dH = float(np.abs(got["H"].astype(np.float64) - ref["H"]).max())
+    check(dH <= 1e-6, f"sharded {what}: H differs from icp_register by {dH} > 1e-6")
+    return dH
+
+
+def shard_launch_check(case, launches, n_it, rank=0):
+    """The kernels of the case ran on this rank: the match once an iteration
+    (none with the grid matcher), the k-NN once (none prepared), the gate's
+    1-NN (d2-only) when brute-gated and in the dilate gate's band, the
+    dilation on rank 0 of the dilate run."""
+    grid = case.startswith("grid")
+    want_match = 0 if grid else n_it
+    check(launches["match_transform"] == want_match,
+          f"sharded {case} rank {rank}: {launches['match_transform']} match launches, "
+          f"expected {want_match}")
+    want_knn = 0 if case.startswith("prepared") else 1
+    check(launches["knn_search"] == want_knn,
+          f"sharded {case} rank {rank}: {launches['knn_search']} k-NN launches")
+    gated = case.startswith(("gated", "dilate"))  # the grid gate is no kernel
+    check((launches["nn_search_d2"] > 0) == gated,
+          f"sharded {case} rank {rank}: {launches['nn_search_d2']} d2-only 1-NN launches")
+    if case.startswith("dilate"):
+        check((launches["dilate"] > 0) == (rank == 0),
+              f"sharded {case} rank {rank}: {launches['dilate']} dilate launches")
+
+
+def sharded_world1(torch, clouds):
+    """World 1 in this process over NCCL: every SHARD_WORLD1 case against
+    the single-card run (medians of SHARD_REPS, in turns)."""
+    import numpy as np
+
+    from simpleicp_tpu_torch import IcpConfig, prepare_fixed
+    from simpleicp_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    backend = "nccl" if SHARD_DEVICE == "cuda" else "gloo"
+    check(mesh.size == 1 and mesh.rank == 0 and mesh.backend == backend,
+          f"world 1: mesh {mesh.size} {mesh.rank} {mesh.backend}")
+    out, refs, recs = {}, {}, {}
+    for case in SHARD_WORLD1:
+        prep = None
+        if case.startswith("prepared"):
+            X_fix = shard_clouds(clouds, SHARD_CASES[case][0])[0]
+            prep = prepare_fixed(X_fix, IcpConfig(), device=SHARD_DEVICE, dtype=torch.float32)
+        (res, carry), counted = shard_counted(
+            torch, lambda: shard_run(case, clouds, mesh, prep), mesh)
+        got = recs[case] = shard_record(res, carry)
+        n_it = int(res.n_iterations)
+        shard_launch_check(case, counted["launches"], n_it)
+        rows, results = timed_runs(torch, {
+            "single": lambda: shard_run(case, clouds, None, prep),
+            "sharded": lambda: shard_run(case, clouds, mesh, prep)}, SHARD_REPS)
+        ref = shard_record(*results["single"][0])
+        refs[case] = ref
+        for r in results["sharded"]:
+            rec = shard_record(*r)
+            check(all(np.array_equal(rec[f], got[f]) for f in got),
+                  f"sharded {case}: runs of one world differ")
+        dH = shard_compare(got, ref, f"world 1 {case}")
+        loop = counted["collectives"].get("loop_collectives", 0)
+        if case.startswith("prepared"):
+            shard_compare(got, refs["ungated 1.34M"], "prepared against self-contained")
+        out[case] = {
+            "n_iterations": n_it, "error_code": int(res.error_code),
+            "H_max_abs_diff_vs_icp_register": dH, "H_bit_equal": dH == 0.0,
+            "single_median_s": rows["single"]["median_s"],
+            "sharded_median_s": rows["sharded"]["median_s"],
+            "single_runs_s": rows["single"]["runs_s"],
+            "sharded_runs_s": rows["sharded"]["runs_s"],
+            "single_launches": rows["single"]["launches"],
+            "single_host_reads": rows["single"]["host_reads"][-1],
+            **counted, "collectives_per_iteration": loop / max(n_it, 1)}
+    mono, chunk = out["gated 100k"], out["gated 100k K=2"]
+    check(all(np.array_equal(recs["gated 100k"][f], recs["gated 100k K=2"][f])
+              for f in recs["gated 100k"]), "sharded chunked: differs from monolithic")
+    check(chunk["host_reads"] == mono["host_reads"],
+          f"sharded chunked: {chunk['host_reads']} host reads against {mono['host_reads']}")
+    return out, refs
+
+
+def sharded_worker(rank: int, spec_path: str) -> int:
+    """One rank of world 2 (``chip_smoke.py --sharded-rank RANK SPEC``):
+    initialize_multihost over gloo on the shared card, every case of the
+    spec counted once and timed SHARD_REPS times, its records written to
+    ``out_dir/rank{RANK}.npz`` and ``.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from simpleicp_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    global SHARD_DEVICE
+    spec = json.loads(Path(spec_path).read_text())
+    SHARD_DEVICE = spec["device"]
+    initialize_multihost(f"localhost:{spec['port']}", spec["world"], rank, backend="gloo")
+    mesh = make_mesh()
+    check(mesh.multihost and mesh.rank == rank, "world 2: this rank's mesh")
+    clouds, arrays, info = {}, {}, {}
+    for case in spec["cases"]:
+        dist.barrier()
+        (res, carry), counted = shard_counted(torch, lambda: shard_run(case, clouds, mesh), mesh)
+        runs = []
+        for _ in range(spec["reps"]):
+            dist.barrier()
+            shard_sync(torch)
+            t0 = time.perf_counter()
+            shard_run(case, clouds, mesh)
+            shard_sync(torch)
+            runs.append(time.perf_counter() - t0)
+        arrays.update({f"{case}/{k}": v for k, v in shard_record(res, carry).items()})
+        info[case] = {**counted, "runs_s": runs, "median_s": statistics.median(runs)}
+    dist.destroy_process_group()
+    np.savez(Path(spec["out_dir"]) / f"rank{rank}.npz", **arrays)
+    (Path(spec["out_dir"]) / f"rank{rank}.json").write_text(json.dumps(info))
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "simpleicp_tpu")]
+    check(not bad, f"world 2 rank {rank} imported {bad}")
+    return 0
+
+
+def sharded_world2(torch, clouds, refs):
+    """World 2: two processes on the one card, started through
+    initialize_multihost over gloo (collectives staged through host
+    memory). Each rank equal to the other bit for bit and to the
+    single-card run (``refs``, or run here)."""
+    import socket
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        spec = Path(tmp) / "spec.json"
+        spec.write_text(json.dumps({"port": port, "world": 2, "out_dir": tmp,
+                                    "cases": list(SHARD_WORLD2), "reps": SHARD_REPS,
+                                    "device": SHARD_DEVICE}))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, *SHARD_WORKER,
+                                   "--sharded-rank", str(r), str(spec)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=ROOT)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"world 2 rank {r} failed:\n{log[-4000:]}")
+        wall = time.perf_counter() - t0
+        ranks = [np.load(Path(tmp) / f"rank{r}.npz") for r in range(2)]
+        info = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(2)]
+    out = {"processes_wall_s": wall}
+    for case in SHARD_WORLD2:
+        recs = [{k.split("/", 1)[1]: z[k] for k in z.files if k.startswith(case + "/")}
+                for z in ranks]
+        for f in recs[0]:
+            check(np.array_equal(recs[0][f], recs[1][f]),
+                  f"world 2 {case}: ranks differ in {f}")
+        if case not in refs:
+            refs[case] = shard_record(*shard_run(case, clouds))
+        dH = shard_compare(recs[0], refs[case], f"world 2 {case}")
+        n_it = int(recs[0]["n_iterations"])
+        for r in range(2):
+            shard_launch_check(case, info[r][case]["launches"], n_it, r)
+        out[case] = {
+            "n_iterations": n_it, "H_max_abs_diff_vs_icp_register": dH,
+            "H_bit_equal": dH == 0.0, "ranks_bit_equal": True,
+            "median_s": max(i[case]["median_s"] for i in info),
+            "ranks": [{**i[case], "collectives_per_iteration":
+                       i[case]["collectives"].get("loop_collectives", 0) / max(n_it, 1)}
+                      for i in info]}
+    return out
+
+
+def phase_sharded(torch, smi_line):
+    """The sharded registration on the card, float32: world 1 (NCCL, in
+    this process) and world 2 (two processes on the one card, gloo), each
+    run against icp_register on the card. Returns each kernel's launches
+    on the sharded path (world 1's counted runs and both world-2 ranks)."""
+    from simpleicp_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    clouds = {}
+    world1, refs = launch.run(1, lambda: sharded_world1(torch, clouds), device=SHARD_DEVICE)[0]
+    world2 = sharded_world2(torch, clouds, refs)
+    launches = {name: 0 for name in KERNELS}
+    rows = list(world1.values()) + [r for c in SHARD_WORLD2 for r in world2[c]["ranks"]]
+    for row in rows:
+        for name, n in row["launches"].items():
+            launches["nn_search" if name.startswith("nn_search") else name] += n
+    for name in KERNELS:
+        check(launches[name] > 0, f"sharded: the {name} kernel was not launched")
+    emit({"phase": "sharded", "nvidia_smi": smi_line,
+          "note": ("world 2 is two processes sharing one card over gloo: its times "
+                   "measure correctness and overhead, not scaling"),
+          "world1_nccl_in_process": world1, "world2_gloo_two_processes": world2,
+          "kernel_launches_on_the_sharded_path": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def cuda_ms(torch, fn, reps):
     """Mean ms per call over reps calls between two CUDA events, after two
     warm-up calls."""
@@ -2757,7 +3085,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument("--sharded-rank", nargs=2, metavar=("RANK", "SPEC"),
+                    help="run one rank of the sharded phase's world 2 (started by "
+                         "the sharded phase itself)")
     args = ap.parse_args(argv)
+    if args.sharded_rank:
+        return sharded_worker(int(args.sharded_rank[0]), args.sharded_rank[1])
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -2773,7 +3106,7 @@ def main(argv=None) -> int:
     check("jax" not in sys.modules and "simpleicp_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
 
-    phase_device(torch)
+    smi_line = phase_device(torch)
     if "build" in phases:
         phase_build()
     cmp = Compare(torch)
@@ -2795,6 +3128,7 @@ def main(argv=None) -> int:
         phase_cli(torch)
     serve = phase_serve(torch, cmp) if "serve" in phases else None
     batch = phase_batch(torch, cmp) if "batch" in phases else None
+    sharded = phase_sharded(torch, smi_line) if "sharded" in phases else None
     times = (phase_times(torch, scale, gated_big, phases, dil)
              if "times" in phases else None)
     if "profile" in phases:
@@ -2809,7 +3143,8 @@ def main(argv=None) -> int:
         # a prepared registration's matches, and the gated warm start's
         # 1-NN and dilation; and on the batch path (batch_launches): the
         # B=8 batches' match, k-NN and 1-NN (the dilate gate is refused in
-        # batch mode); and on the grid path (grid_launches): the big-C
+        # batch mode); and on the sharded path (sharded_launches): world 1's
+        # counted runs and both world-2 ranks; and on the grid path (grid_launches): the big-C
         # grid-matched registration's k-NN (its matcher and gate are the
         # grid engines, PyTorch operations); and on the chunked path
         # (chunked_launches): every kernel over the chunked phase's runs
@@ -2829,6 +3164,7 @@ def main(argv=None) -> int:
                 if name == "nn_search" else {}),
              **({} if serve is None else {"serve_launches": serve[name]}),
              **({} if batch is None else {"batch_launches": batch.get(name, 0)}),
+             **({} if sharded is None else {"sharded_launches": sharded[name]}),
              **({} if grid is None else {"grid_launches": grid.get(name, 0)}),
              **({} if chunked is None else {"chunked_launches": chunked.get(name, 0) + (
                  chunked.get("nn_search_d2", 0) if name == "nn_search" else 0)})}

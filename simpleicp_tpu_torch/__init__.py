@@ -5,7 +5,9 @@ A port of the JAX package ``simpleicp_tpu``, which stays the reference it is
 tested against. Entry points run on the card unless the caller passes
 ``device="cpu"``, which runs each kernel's plain PyTorch version instead.
 Importing this package imports no JAX and builds nothing: the kernels are
-compiled from ``csrc/`` at their first call on the card.
+compiled from ``csrc/`` at their first call on the card. ``parallel/``
+shards a registration over several devices, one process each
+(``torch.distributed``).
 """
 
 __version__ = "0.1.0"
@@ -36,6 +38,12 @@ from .models.icp import (  # noqa: E402
 )
 from .models.solver import Parameter, RigidBodyParameters  # noqa: E402
 from .api import PointCloud, PointCloudException, SimpleICP, SimpleICPException  # noqa: E402
+from .parallel import (  # noqa: E402
+    icp_register_sharded,
+    initialize_multihost,
+    make_mesh,
+    process_info,
+)
 
 __all__ = [
     "CorrPts",
@@ -58,7 +66,11 @@ __all__ = [
     "fixed_prep_to_numpy",
     "icp_register",
     "icp_register_batch",
+    "icp_register_sharded",
+    "initialize_multihost",
     "load_fixed_prep",
+    "make_mesh",
     "prepare_fixed",
+    "process_info",
     "result_to_numpy",
 ]

@@ -15,6 +15,7 @@ counterpart of the JAX package's platform and x64 switches.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from pathlib import Path
@@ -312,8 +313,12 @@ class SimpleICP:
         matcher run as the config resolves them; ``dispatch``,
         ``chunk_iterations``, ``program_budget_s`` and ``stall_policy``
         plan and run chunked dispatch on the card (``icp_register``).
-        Settings that are not ported yet raise NotImplementedError naming
-        their ROADMAP item: ``mesh`` and ``num_devices`` (sharded runs).
+        ``mesh`` (``parallel.make_mesh``, in every rank of a process group)
+        or ``num_devices`` run the registration sharded
+        (``parallel.sharded.register_sharded``): with no process group,
+        ``num_devices`` processes start, one a device (the cards over
+        NCCL, or CPU processes over gloo with ``device="cpu"``), and rank
+        0's result is used. The same result and logging contract.
 
         Returns:
             (H, X_mov_transformed, rbp, distance_residuals)
@@ -325,10 +330,6 @@ class SimpleICP:
         self._check_arguments(
             distance_weights, rbp_observed_values, rbp_observation_weights
         )
-        if mesh is not None or num_devices:
-            raise icp_core.not_ported(
-                "a sharded run (mesh / num_devices)", "item 14 (parallel)"
-            )
         dev, dtype = resolve(self.device, self.dtype)
 
         start_time = time.time()
@@ -400,7 +401,13 @@ class SimpleICP:
 
         _log.info("Start iterations ...")
         _t_reg = time.time()
-        result = icp_core.icp_register(
+        register = icp_core.icp_register
+        if mesh is not None or num_devices:
+            from .parallel.sharded import register_sharded
+
+            register = functools.partial(register_sharded, mesh=mesh,
+                                         num_devices=num_devices)
+        result = register(
             Xf_run,
             Xm_run,
             cfg,

@@ -12,8 +12,9 @@ any other to the card (``utils/device_policy.py``); ``--dtype`` chooses
 float32 (the default) or float64. A job routed to the card without one
 raises; it never falls back to the CPU. Only ``auto`` health-probes the
 card first (the JAX package probes before every accelerator job).
-``--num-devices`` is not ported
-yet and fails with its ROADMAP item.
+``--num-devices N`` shards the registration over N processes, one a device
+(``parallel/``): N cards over NCCL, or with ``--device cpu`` N CPU processes
+over gloo.
 """
 
 from __future__ import annotations
@@ -93,8 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug_dirpath", default="")
     p.add_argument(
         "--num-devices", type=int, default=0,
-        help="shard the registration over this many devices (0 = one card; "
-             "sharding is not ported yet)",
+        help="shard the registration over this many devices, one process "
+             "each (0 = no sharding; with --device cpu, CPU processes)",
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu", "auto"), default="cuda",

@@ -90,7 +90,10 @@ class IcpConfig:
             estimate does (a throttled or shared card): "warn" logs and
             goes on; "wait" holds the next chunk until a health probe of
             the card answers. The result is the same either way.
-        gate_collective: collective of the sharded gate (not ported).
+        gate_collective: how the sharded overlap gate meets the movable
+            blocks (``parallel/sharded.py``): "ring" passes them from rank
+            to rank, one block a step; "allgather" gathers them once. The
+            same mask either way.
     """
 
     correspondences: int = 1000

@@ -376,6 +376,15 @@ def _make_match_fn(Q, Xm, cfg: IcpConfig, grid=None):
     return match_fn
 
 
+def back_transform(q: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    """R^T (q - t) of points q (n, 3) under a rigid H (4, 4): the query of
+    the static-grid matcher, as explicit multiply-adds (no matrix product:
+    TF32 never touches a coordinate)."""
+    d = q - H[:3, 3]
+    return torch.stack([(d[:, 0] * H[0, j] + d[:, 1] * H[1, j]) + d[:, 2] * H[2, j]
+                        for j in range(3)], dim=-1)
+
+
 def _make_grid_match_fn(Q, Xm, cfg: IcpConfig, grid):
     """The static-grid matcher of one pair (Q (1, C, 3), Xm (1, nm, 3)):
     ONE cell list over the untransformed movable cloud (``grid``, from
@@ -392,12 +401,7 @@ def _make_grid_match_fn(Q, Xm, cfg: IcpConfig, grid):
     q = Q[0]
 
     def match_fn(Ht):
-        H = Ht[0]
-        d = q - H[:3, 3]
-        # R^T (q - t) as explicit multiply-adds (no matrix product: TF32
-        # never touches a coordinate).
-        qb = torch.stack([(d[:, 0] * H[0, j] + d[:, 1] * H[1, j]) + d[:, 2] * H[2, j]
-                          for j in range(3)], dim=-1)
+        qb = back_transform(q, Ht[0])
         d2, pos = grid_query_sorted(qb, g_pts, g_slots, g_origin, r, cell_cap=cap,
                                     run_end=g_run_end)
         m_valid = d2 <= r * r
@@ -669,12 +673,6 @@ def _first(t):
     """The only pair of a one-pair batch: a tuple of tensors (IcpResult,
     _Carry) with each tensor's pair axis dropped."""
     return type(t)(*(v[0] if isinstance(v, torch.Tensor) else v for v in t))
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to simpleicp_tpu_torch yet: ROADMAP queue 1 {item}"
-    )
 
 
 def _resolve_engines(cfg: IcpConfig, nf: int, nm: int) -> IcpConfig:

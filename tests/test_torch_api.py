@@ -124,7 +124,8 @@ def test_run_user_normals_and_movable_planarity(logs):
 def test_run_exceptions_match_jax():
     """No overlap, too few correspondences, bad arguments and a run without
     clouds raise SimpleICPException with the JAX package's messages; a
-    sharded run raises NotImplementedError naming its ROADMAP item;
+    sharded run (num_devices=2: two CPU processes over gloo) gives the JAX
+    package's sharded H within 1e-9 and the port's unsharded H bit for bit;
     chunked dispatch runs and gives the monolithic H."""
     X_fix, X_mov, _ = _pair(704, n=800)
     cases = [
@@ -147,10 +148,14 @@ def test_run_exceptions_match_jax():
         assert msgs[0] == msgs[1], kw
     with pytest.raises(T.SimpleICPException, match="add_point_clouds"):
         T.SimpleICP(verbose=False, **F64).run()
-    icp = T.SimpleICP(verbose=False, **F64)
-    icp.add_point_clouds(T.PointCloud(X_fix), T.PointCloud(X_mov))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        icp.run(num_devices=2)
+    H_sharded = {}
+    for name, mod, kw in (("jax", J, dict(num_devices=2)), ("port", T, dict(num_devices=2)),
+                          ("port_1", T, {})):
+        icp = mod.SimpleICP(verbose=False, **({} if mod is J else F64))
+        icp.add_point_clouds(mod.PointCloud(X_fix), mod.PointCloud(X_mov))
+        H_sharded[name] = np.asarray(icp.run(correspondences=300, **kw)[0])
+    np.testing.assert_allclose(H_sharded["port"], H_sharded["jax"], rtol=0, atol=1e-9)
+    np.testing.assert_array_equal(H_sharded["port"], H_sharded["port_1"])
     # chunked dispatch runs: the same H as the monolithic run, bit for bit
     # (a run adds normal columns to pc1, so each run gets its own clouds)
     H = []

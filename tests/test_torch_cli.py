@@ -98,19 +98,6 @@ def test_cli_float32_and_log_lines(xyz_pair, caplog):
     np.testing.assert_allclose(moved.mean(axis=0), [0.03, -0.02, 0.01], atol=2e-3)
 
 
-UNPORTED_FLAGS = {
-    "num_devices": (["--num-devices", "2"], "item 14"),
-}
-
-
-@pytest.mark.parametrize("name", list(UNPORTED_FLAGS))
-def test_unported_flags_fail_with_their_roadmap_item(xyz_pair, name):
-    _, f1, f2 = xyz_pair
-    flags, item = UNPORTED_FLAGS[name]
-    with pytest.raises(NotImplementedError, match=item):
-        main(["-f", str(f1), "-m", str(f2), "--quiet", "--device", "cpu", *flags])
-
-
 PORTED_FLAGS = {
     "warm_start": ["--warm-start", "--warm-start-points", "1000",
                    "--warm-start-correspondences", "200"],
@@ -118,6 +105,7 @@ PORTED_FLAGS = {
     "gate_grid": ["--gate-method", "grid"],
     "match_grid": ["--match-method", "grid"],
     "chunked": ["--dispatch", "chunked", "--chunk-iterations", "2"],
+    "num_devices": ["--num-devices", "2"],
 }
 
 
@@ -125,9 +113,11 @@ PORTED_FLAGS = {
 def test_serving_flags_equal_the_jax_cli(xyz_pair, name):
     """--warm-start (the 2500-point clouds above the lowered
     --warm-start-points, so the coarse pass runs), --approx-knn, the grid
-    engines (--gate-method grid, --match-method grid with the gate's radius)
-    and chunked dispatch (--dispatch chunked, 2 iterations a chunk) run:
-    the exported cloud equals the JAX CLI's with the same flags."""
+    engines (--gate-method grid, --match-method grid with the gate's radius),
+    chunked dispatch (--dispatch chunked, 2 iterations a chunk) and the
+    sharded run (--num-devices 2: two CPU processes over gloo with --device
+    cpu, the JAX CLI's virtual CPU mesh of 2) run: the exported cloud equals
+    the JAX CLI's with the same flags."""
     d, f1, f2 = xyz_pair
     common = ["-f", str(f1), "-m", str(f2), "-o", "0.25", "-c", "300", "--quiet",
               "--device", "cpu", *PORTED_FLAGS[name]]

@@ -994,3 +994,48 @@ def test_knn_grid_normals_on_the_card(cuda, kind, dtype, monkeypatch, caplog):
     assert any(("regrid" if kind == "regrid" else "dense recompute") in m for m in lines), lines
     dn, dp = icp._dense_knn_rows(Q, Xf, cfg)
     assert torch.equal(normals, dn) and torch.equal(planarity, dp)
+
+
+@pytest.mark.parametrize("case", ["ungated", "gated ring", "gated allgather", "grid"])
+def test_sharded_world_one_on_the_card(cuda, case):
+    """The sharded registration as a world of one over NCCL (in this
+    process), float32 at 20k: every result field and the last matches equal
+    to icp_register's on the card, with the match kernel launched once an
+    iteration and the k-NN once."""
+    from simpleicp_tpu_torch import IcpConfig
+    from simpleicp_tpu_torch.models.icp import _icp_register
+    from simpleicp_tpu_torch.ops import knn_cuda
+    from simpleicp_tpu_torch.parallel import launch, make_mesh
+    from simpleicp_tpu_torch.parallel.sharded import _icp_register_sharded
+
+    rng = np.random.default_rng(19)
+
+    def surface(n, lo, hi):
+        xy = np.column_stack([rng.uniform(lo, hi, n), rng.uniform(-2, 2, n)])
+        return np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+
+    X_fix, X_mov = surface(20000, -2, 2), surface(20000, -1, 3) + [0.02, -0.01, 0.01]
+    kw = {"gated ring": dict(max_overlap_distance=0.1),
+          "gated allgather": dict(max_overlap_distance=0.1, gate_collective="allgather"),
+          "grid": dict(max_overlap_distance=0.1, gate_method="grid", match_method="grid")
+          }.get(case, {})
+    cfg = IcpConfig(correspondences=2000, **kw)
+    args = dict(rbp_observed_values=None, rbp_observation_weights=None, normals_fix=None,
+                planarity_fix=None, planarity_mov=None, fixed_prep=None, device=cuda,
+                dtype=torch.float32)
+    ref, ref_c = _icp_register(X_fix, X_mov, cfg, **args)
+
+    def sharded():
+        mesh = make_mesh()
+        assert mesh.backend == "nccl"
+        knn_cuda.reset_launch_counts()
+        out = _icp_register_sharded(X_fix, X_mov, cfg, mesh=mesh, **args)
+        return out, dict(knn_cuda.LAUNCHES)
+
+    (res, res_c), launches = launch.run(1, sharded)[0]
+    assert int(res.error_code) == 0
+    for f in ref._fields:
+        assert torch.equal(getattr(res, f), getattr(ref, f)), f
+    assert torch.equal(res_c.m_idx, ref_c.m_idx)
+    assert launches["knn_search"] == 1
+    assert launches["match_transform"] == (0 if case == "grid" else int(res.n_iterations))

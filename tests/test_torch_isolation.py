@@ -23,7 +23,8 @@ def test_import_pulls_in_no_jax():
         "simpleicp_tpu_torch.ops.dilate_gate, simpleicp_tpu_torch.ops.dilate_cuda, "
         "simpleicp_tpu_torch.ops.gridhash, "
         "simpleicp_tpu_torch.models.icp, simpleicp_tpu_torch.utils.xyz_io, "
-        "simpleicp_tpu_torch.cli, simpleicp_tpu_torch.metrics; "
+        "simpleicp_tpu_torch.cli, simpleicp_tpu_torch.metrics, "
+        "simpleicp_tpu_torch.parallel.launch, simpleicp_tpu_torch.parallel.sharded; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'simpleicp_tpu' or m.startswith('simpleicp_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -180,3 +181,24 @@ def test_no_cuda_means_the_cli_and_class_api_raise(monkeypatch, tmp_path):
         PointCloud(X).estimate_normals(5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         icp_register(X, X, IcpConfig(correspondences=10, max_overlap_distance=1.0))
+
+
+def test_spawned_rank_imports_no_jax():
+    """A rank that ``parallel.launch`` spawns (the entry point of
+    ``SimpleICP.run(num_devices=n)``) holds no JAX and no JAX package in
+    sys.modules after running the sharded registration. The rank runs
+    ``eval`` (a builtin, so the child unpickles nothing of this module) of
+    the registration followed by the module listing."""
+    from simpleicp_tpu_torch.parallel import launch, sharded
+
+    X = np.random.default_rng(5).uniform(-1, 1, (400, 3)) * [1, 1, 0.1]
+    job = dict(X_fix=X, X_mov=X + 0.01, cfg=IcpConfig(correspondences=30), device="cpu")
+    code = ("(register_jobs(jobs), sorted(m for m in __import__('sys').modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'simpleicp_tpu') "
+            "or m.startswith('simpleicp_tpu_torch.parallel')))")
+    out = launch.run(2, eval, code, {"register_jobs": sharded.register_jobs, "jobs": [job]},
+                     device="cpu")
+    for results, modules in out:
+        assert int(results[0].error_code) == 0
+        assert "simpleicp_tpu_torch.parallel.sharded" in modules
+        assert all(m.startswith("simpleicp_tpu_torch.parallel") for m in modules), modules
