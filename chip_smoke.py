@@ -79,8 +79,17 @@ Phases, each printing one JSON object on a line of its own:
            one-time cost in a fresh process), each constant within a factor
            of 2 of its measurement; the CLI with --device auto routing a
            5 000-point pair to the CPU and a 1M pair to the card;
-  cli      python3 -m simpleicp_tpu_torch on a gated 100 000-point xyz pair,
-           as a subprocess on the card: its lines and its exported cloud;
+  cli      python3 -m simpleicp_tpu_torch as a subprocess on the card: a
+           gated 100 000-point xyz pair, its lines and its exported cloud;
+           the dilate 1.2M pair written at the CLI's default %.3f with the
+           port's writer, -o 0.1 --export (gate_method "auto" plans the
+           dilate gate: the dilation, the band's d2-only 1-NN, the k-NN
+           and the match all launch, counted in the CLI's process), to
+           convergence, the export within 5e-3 of the known motion, and the
+           CLI's timing lines (parse, register, write); then read_xyz
+           against read_xyz_plain and write_xyz against write_xyz_plain on
+           that 1.2M file (in turns: plain, native, native, plain),
+           bit-equal arrays and byte-equal files;
   serve    the serving path, float32 on the card: prepare_fixed once on a
            1.34M fixed cloud and 4 movable clouds (each under its own rigid
            motion from the seed) registered against it, prepared and
@@ -139,7 +148,9 @@ Phases, each printing one JSON object on a line of its own:
            per-launch and host-sort costs); registration times; host reads;
            memory;
   profile  one registration of each cell under torch.profiler: device busy
-           and idle share, kernel launches, device time by kernel.
+           and idle share, kernel launches, device time by kernel; and one
+           100k registration under utils.profiling.trace, whose Chrome
+           trace must name the match and k-NN kernels.
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero without its last
@@ -1772,11 +1783,106 @@ def phase_policy(torch):
           "phase_s": time.perf_counter() - t_phase})
 
 
-def phase_cli(torch):
-    """The CLI as a user starts it, in a subprocess on the card: a gated
-    100k pair written as xyz files, exported cloud read back."""
+CLI_ENV = {"SIMPLEICP_TPU_DEBUG_TIMING": "1"}  # the CLI's "timing:" lines
+CLI_TIMINGS = ("parse both clouds", "register (to the host)", "write transformed cloud")
+
+
+def run_cli(args, counted=False):
+    """``python3 -m simpleicp_tpu_torch *args`` in a subprocess on the card:
+    (exit code, its output, wall seconds, the kernel launches of its
+    process or None). ``counted`` runs the module the way ``-m`` does
+    (runpy) inside ``chip_smoke.py --cli-counted``, which sets every count
+    to 0 before and prints them after."""
+    env = {**os.environ, **CLI_ENV,
+           "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    head = ([sys.executable, str(Path(__file__).resolve()), "--cli-counted"] if counted
+            else [sys.executable, "-m", "simpleicp_tpu_torch"])
+    t0 = time.perf_counter()
+    proc = subprocess.run([*head, *args], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    launches = None
+    if counted:
+        lines = [ln for ln in proc.stderr.splitlines() if ln.startswith("CLI_LAUNCHES ")]
+        launches = json.loads(lines[-1].split(" ", 1)[1]) if lines else None
+    return proc.returncode, log, seconds, launches
+
+
+def cli_counted(args) -> int:
+    """The CLI's ``main`` as ``python3 -m simpleicp_tpu_torch`` runs it, with
+    every launch count set to 0 just before and printed on standard error
+    just after (``CLI_LAUNCHES {...}``)."""
+    import runpy
+
+    reset_counts()
+    sys.argv = ["simpleicp_tpu_torch", *args]
+    try:
+        runpy.run_module("simpleicp_tpu_torch", run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+    print("CLI_LAUNCHES " + json.dumps(read_counts()), file=sys.stderr, flush=True)
+    return rc
+
+
+def check_cli_run(rc, log, what):
+    check(rc == 0, f"CLI {what} exited {rc}: {log[-3000:]}")
+    for line in ("orig:0", "Convergence criteria fulfilled -> stop iteration!",
+                 "Finished in "):
+        check(line in log, f"CLI {what}: output lacks {line!r}")
+    finished = [ln for ln in log.splitlines() if ln.startswith("Finished in ")]
+    return finished[-1]
+
+
+def export_err(X_out, X_in, n, what):
+    """Largest distance of the exported cloud from the movable cloud moved
+    back by the known motion (three decimals in the files)."""
     import numpy as np
 
+    check(X_out.shape == (n, 3) and bool(np.isfinite(X_out).all()),
+          f"CLI {what}: exported cloud has shape {X_out.shape} or is not finite")
+    R, tt = known_motion()
+    err = float(np.abs(X_out - (X_in @ R.T + tt)).max())
+    check(err < 5e-3, f"CLI {what}: exported cloud is {err} from the known motion")
+    return err
+
+
+def io_times(X, path, d):
+    """read_xyz against read_xyz_plain on ``path`` and write_xyz against
+    write_xyz_plain of X, in turns (plain, native, native, plain): the
+    seconds of each run, the arrays bit-equal and the files byte-equal."""
+    import numpy as np
+
+    from simpleicp_tpu_torch.utils import xyz_io
+
+    runs = {k: [] for k in ("read_native", "read_plain", "write_native", "write_plain")}
+    outs = {}
+    for impl in ("plain", "native", "native", "plain"):
+        read = xyz_io.read_xyz if impl == "native" else xyz_io.read_xyz_plain
+        t0 = time.perf_counter()
+        outs[impl] = read(path)
+        runs[f"read_{impl}"].append(time.perf_counter() - t0)
+    check(np.array_equal(outs["native"].view(np.uint64), outs["plain"].view(np.uint64)),
+          "read_xyz is not bit-equal to read_xyz_plain on the 1.2M file")
+    files = {}
+    for impl in ("plain", "native", "native", "plain"):
+        write = xyz_io.write_xyz if impl == "native" else xyz_io.write_xyz_plain
+        files[impl] = os.path.join(d, f"write_{impl}.xyz")
+        t0 = time.perf_counter()
+        write(files[impl], X, fmt="%.3f")
+        runs[f"write_{impl}"].append(time.perf_counter() - t0)
+    with open(files["native"], "rb") as a, open(files["plain"], "rb") as b:
+        check(a.read() == b.read(), "write_xyz is not byte-equal to write_xyz_plain")
+    return {"runs_s": runs, "median_s": {k: statistics.median(v) for k, v in runs.items()},
+            "file_bytes": os.path.getsize(path), "bit_equal": True, "byte_equal": True}
+
+
+def phase_cli(torch):
+    """The CLI as a user starts it, in a subprocess on the card: a gated
+    100k pair, and the dilate 1.2M pair with its launches counted; the
+    exported clouds read back; then the native xyz I/O against numpy on the
+    1.2M file. Returns the 1.2M run's launches."""
     from simpleicp_tpu_torch.utils.xyz_io import read_xyz, write_xyz
 
     X_fix, X_mov, t, _ = partial_pair(N_MAIN, SEED + 6)
@@ -1784,34 +1890,49 @@ def phase_cli(torch):
         f1, f2, out = (os.path.join(d, n) for n in ("fix.xyz", "mov.xyz", "out.xyz"))
         write_xyz(f1, X_fix, fmt="%.6f")
         write_xyz(f2, X_mov, fmt="%.6f")
-        env = {**os.environ,
-               "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
-        cmd = [sys.executable, "-m", "simpleicp_tpu_torch", "-f", f1, "-m", f2,
-               "-o", str(GATE_RADIUS), "--export", out]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        check(proc.returncode == 0, f"CLI exited {proc.returncode}: {log[-3000:]}")
-        for line in ("orig:0", "Convergence criteria fulfilled -> stop iteration!",
-                     "Finished in "):
-            check(line in log, f"CLI output lacks {line!r}")
-        X_out = read_xyz(out)
-        X_in = read_xyz(f2)
-    check(X_out.shape == (N_MAIN, 3) and bool(np.isfinite(X_out).all()),
-          f"exported cloud has shape {X_out.shape} or is not finite")
-    # The exported cloud is the movable cloud moved back: compare with the
-    # known motion at every point (three decimals in the file).
-    R, tt = known_motion()
-    err = float(np.abs(X_out - (X_in @ R.T + tt)).max())
-    check(err < 5e-3, f"exported cloud is {err} from the known motion")
-    finished = [ln for ln in log.splitlines() if ln.startswith("Finished in ")]
-    emit({"phase": "cli", "command": "python3 -m simpleicp_tpu_torch -f fix.xyz "
-          f"-m mov.xyz -o {GATE_RADIUS} --export out.xyz", "n_points": N_MAIN,
-          "exit_code": proc.returncode, "wall_s": seconds,
-          "finished_line": finished[-1] if finished else None,
+        rc, log, seconds, _ = run_cli(["-f", f1, "-m", f2, "-o", str(GATE_RADIUS),
+                                       "--export", out])
+        finished = check_cli_run(rc, log, "gated 100k")
+        err = export_err(read_xyz(out), read_xyz(f2), N_MAIN, "gated 100k")
+    emit({"phase": "cli", "part": "gated 100k", "command": "python3 -m simpleicp_tpu_torch "
+          f"-f fix.xyz -m mov.xyz -o {GATE_RADIUS} --export out.xyz", "n_points": N_MAIN,
+          "exit_code": rc, "wall_s": seconds, "finished_line": finished,
           "export_max_abs_err": err})
+
+    X_fix, X_mov, t, _ = partial_pair(N_DILATE, SEED + 8, N_DILATE / N_MAIN)
+    with tempfile.TemporaryDirectory() as d:
+        f1, f2, out = (os.path.join(d, n) for n in ("fix.xyz", "mov.xyz", "out.xyz"))
+        t0 = time.perf_counter()
+        write_xyz(f1, X_fix)  # the CLI's default %.3f
+        write_xyz(f2, X_mov)
+        write_s = time.perf_counter() - t0
+        rc, log, seconds, launches = run_cli(["-f", f1, "-m", f2, "-o", str(GATE_RADIUS),
+                                              "--export", out], counted=True)
+        finished = check_cli_run(rc, log, "dilate 1.2M")
+        check(launches is not None, f"CLI dilate 1.2M printed no launch counts: {log[-2000:]}")
+        # auto plans the dilate gate: one dilation run, the band sweep in
+        # the 1-NN's d2-only mode, one k-NN, one match an iteration
+        check(launches["dilate"] >= 1 and launches["nn_search_d2"] >= 1
+              and launches["nn_search"] == 0 and launches["knn_search"] == 1
+              and launches["match_transform"] >= 1,
+              f"CLI dilate 1.2M: kernel launches {launches}")
+        X_in = read_xyz(f2)
+        err = export_err(read_xyz(out), X_in, N_DILATE, "dilate 1.2M")
+        timing = {}
+        for ln in log.splitlines():
+            for name in CLI_TIMINGS:
+                if ln.startswith(f"timing: {name} "):
+                    timing[name] = float(ln.split()[-2])
+        check(set(timing) == set(CLI_TIMINGS), f"CLI dilate 1.2M: timing lines {timing}")
+        io = io_times(X_in, f2, d)
+    emit({"phase": "cli", "part": "dilate 1.2M", "command": "python3 -m simpleicp_tpu_torch "
+          f"-f fix.xyz -m mov.xyz -o {GATE_RADIUS} --export out.xyz (run as -m runs it, "
+          "by runpy in chip_smoke.py --cli-counted, which counts the launches)",
+          "n_points": N_DILATE, "input_format": "%.3f", "inputs_written_s": write_s,
+          "exit_code": rc, "wall_s": seconds, "finished_line": finished,
+          "cli_timing_s": timing, "launches": launches, "export_max_abs_err": err,
+          "xyz_io": io})
+    return launches
 
 
 # Serving: the 1.34M cell's fixed cloud as the map, and four movable scans
@@ -3079,6 +3200,35 @@ def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
         }
     emit({"phase": "profile", "what": "one float32 registration, default config "
           f"(gated: max_overlap_distance={GATE_RADIUS}, gate_method auto)", "cells": out})
+    emit({"phase": "profile", "part": "trace", **trace_file(torch, X_fix, X_mov)})
+
+
+def trace_file(torch, X_fix, X_mov):
+    """One 100k registration under utils.profiling.trace: its Chrome trace
+    must exist and name the match and k-NN kernels (their symbols in
+    csrc/knn.cu) among its device events."""
+    from simpleicp_tpu_torch.utils.profiling import trace
+
+    dev = torch.device("cuda")
+    Af = torch.as_tensor(X_fix, dtype=torch.float32, device=dev)
+    Bf = torch.as_tensor(X_mov, dtype=torch.float32, device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with trace(d) as path:
+            _register(torch, Af, Bf, torch.float32, "cuda")
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(os.path.isfile(path), f"trace() wrote no file at {path}")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    named = {sym: sum(sym in k for k in kernels) for sym in ("match_scan", "knn_scan")}
+    check(all(named.values()), f"the trace names no {named} kernel "
+          f"({len(kernels)} kernel events)")
+    return {"path": path, "bytes": size, "events": len(events),
+            "kernel_events": len(kernels), "port_kernel_events": named,
+            "traced_run_s": seconds}
 
 
 def main(argv=None) -> int:
@@ -3088,9 +3238,14 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-rank", nargs=2, metavar=("RANK", "SPEC"),
                     help="run one rank of the sharded phase's world 2 (started by "
                          "the sharded phase itself)")
+    ap.add_argument("--cli-counted", nargs=argparse.REMAINDER,
+                    help="run python3 -m simpleicp_tpu_torch with these arguments "
+                         "and print its kernel launches (started by the cli phase)")
     args = ap.parse_args(argv)
     if args.sharded_rank:
         return sharded_worker(int(args.sharded_rank[0]), args.sharded_rank[1])
+    if args.cli_counted is not None:
+        return cli_counted(args.cli_counted)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -3124,8 +3279,7 @@ def main(argv=None) -> int:
     if "policy" in phases:
         phase_policy(torch)
     errs = cmp.err if "kernels" in phases else None
-    if "cli" in phases:
-        phase_cli(torch)
+    cli = phase_cli(torch) if "cli" in phases else None
     serve = phase_serve(torch, cmp) if "serve" in phases else None
     batch = phase_batch(torch, cmp) if "batch" in phases else None
     sharded = phase_sharded(torch, smi_line) if "sharded" in phases else None
@@ -3148,7 +3302,8 @@ def main(argv=None) -> int:
         # grid-matched registration's k-NN (its matcher and gate are the
         # grid engines, PyTorch operations); and on the chunked path
         # (chunked_launches): every kernel over the chunked phase's runs
-        # (the 1-NN's two modes summed).
+        # (the 1-NN's two modes summed); and on the CLI's path
+        # (cli_launches): the dilate 1.2M CLI run, in its own process.
         modes = {"d2_only": gated_launches["nn_search_d2"], "index": gated_launches["nn_search"]}
         launches = {**main_info[0], "nn_search": sum(modes.values()),
                     "dilate": dil["launches"]["dilate"]}
@@ -3166,6 +3321,8 @@ def main(argv=None) -> int:
              **({} if batch is None else {"batch_launches": batch.get(name, 0)}),
              **({} if sharded is None else {"sharded_launches": sharded[name]}),
              **({} if grid is None else {"grid_launches": grid.get(name, 0)}),
+             **({} if cli is None else {"cli_launches": cli[name] + (
+                 cli["nn_search_d2"] if name == "nn_search" else 0)}),
              **({} if chunked is None else {"chunked_launches": chunked.get(name, 0) + (
                  chunked.get("nn_search_d2", 0) if name == "nn_search" else 0)})}
             for name in KERNELS

@@ -1,10 +1,14 @@
-"""Build the CUDA sources in ``csrc/`` into shared libraries, at first use.
+"""Build the native sources into shared libraries, at first use.
 
 Each ``csrc/<name>.cu`` holds kernels behind a plain C interface and becomes
 ``_build/lib<name>-<hash>.so``, loaded with ctypes by its wrapper module.
-The hash covers the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded. nvcc is looked up in ``$CUDA_HOME``,
-then on ``PATH``, then in the toolkit's default prefix ``/usr/local/cuda``.
+The host C++ of ``native/*.cpp`` (the xyz reader and writer) becomes one
+``_build/libnative-<hash>.so``. The hash covers the sources, the compiler
+and the flags, so an edited source is rebuilt and a stale library is never
+loaded. nvcc is looked up in ``$CUDA_HOME``, then on ``PATH``, then in the
+toolkit's default prefix ``/usr/local/cuda``; the host compiler is ``$CXX``,
+else ``g++``. A library is compiled to a file of its process's own and
+moved into place, so processes that build it at once do not collide.
 Nothing here runs at import.
 """
 
@@ -20,12 +24,17 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
+NATIVE_DIR = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NATIVE = "native"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# No -march=native: a built library may be copied with the checkout to a
+# host of another CPU.
+CXX_FLAGS = ("-std=c++17", "-O3", "-Wall", "-Wextra", "-shared", "-fPIC", "-pthread")
 
 # nvcc's output (with the -Xptxas -v register and shared-memory lines) of
 # each library built or found in this process.
@@ -51,22 +60,42 @@ def nvcc_path() -> str:
     )
 
 
-def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def cxx_path() -> str:
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if found is None:
+        raise RuntimeError(
+            f"host C++ compiler {cxx!r} not found (set CXX or put g++ on PATH): "
+            "the xyz reader and writer are built from native/ at their first use"
+        )
+    return found
+
+
+def _job(name: str):
+    """(target, compile command without its output path, sources) of
+    ``name``: a ``csrc/`` source, or ``NATIVE``."""
+    if name == NATIVE:
+        tool, flags = cxx_path(), CXX_FLAGS
+        srcs = sorted(NATIVE_DIR.glob("*.cpp"))
+    else:
+        tool, flags = nvcc_path(), NVCC_FLAGS
+        srcs = [SRC_DIR / f"{name}.cu"]
+    h = hashlib.sha256(" ".join((os.path.basename(tool), *flags)).encode())
+    for src in srcs:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so", [tool, *flags], srcs
 
 
 def build(name: str) -> Path:
-    """Path of the built library of ``csrc/<name>.cu``, compiling it first
-    if this source and these flags were never built. Distinct sources
-    build concurrently; a second caller of one source waits for the first."""
+    """Path of the built library of ``csrc/<name>.cu`` (or of ``native/``
+    for ``NATIVE``), compiling it first if these sources and flags were
+    never built. Distinct libraries build concurrently; a second caller of
+    one waits for the first. A failed compile raises RuntimeError with the
+    compiler's output."""
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
-        out = _target(name)
+        out, cmd, srcs = _job(name)
         log_path = out.with_suffix(".log")
         if out.exists():
             if name not in BUILD_LOGS and log_path.exists():
@@ -74,11 +103,12 @@ def build(name: str) -> Path:
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run([*cmd, "-o", str(tmp), *map(str, srcs)],
+                              capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed on "
+                               f"{', '.join(s.name for s in srcs)}:\n{log}")
         os.replace(tmp, out)
         log_path.write_text(log)
         BUILD_LOGS[name] = log
@@ -86,9 +116,11 @@ def build(name: str) -> Path:
 
 
 def build_all(names: Iterable[str] = None) -> Dict[str, Path]:
-    """Build every source in ``csrc/`` (or the given ones), one nvcc per
-    source, all started together."""
-    names = sorted(p.stem for p in SRC_DIR.glob("*.cu")) if names is None else list(names)
+    """Build every source in ``csrc/`` and the native library (or the given
+    names), one compiler per library, all started together."""
+    if names is None:
+        names = sorted(p.stem for p in SRC_DIR.glob("*.cu")) + [NATIVE]
+    names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         paths = list(pool.map(build, names))
     return dict(zip(names, paths))

@@ -13,8 +13,10 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-# The six rigid-body parameters, in the order of the parameter vector.
+# The six rigid-body parameters, in the order of the parameter vector, and
+# their values when none are observed (the identity).
 RBP_NAMES: Tuple[str, ...] = ("alpha1", "alpha2", "alpha3", "tx", "ty", "tz")
+DEFAULT_RBP = (0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -675,22 +675,31 @@ def _first(t):
     return type(t)(*(v[0] if isinstance(v, torch.Tensor) else v for v in t))
 
 
+def resolve_match_method(cfg: IcpConfig, n_queries: int, n_mov: int) -> IcpConfig:
+    """The configuration with ``match_method="auto"`` resolved, as the JAX
+    package resolves it: "grid" when the brute matcher's pairs an iteration
+    (``n_queries * n_mov``) exceed ``MATCH_AUTO_PAIR_BUDGET`` and a radius
+    is set (``match_radius`` or the overlap gate's), else "brute". An
+    explicit method is kept."""
+    if cfg.match_method != "auto":
+        return cfg
+    has_radius = cfg.match_radius > 0 or cfg.overlap_enabled
+    big = n_queries * n_mov > MATCH_AUTO_PAIR_BUDGET
+    return dataclasses.replace(cfg, match_method="grid" if (big and has_radius) else "brute")
+
+
 def _resolve_engines(cfg: IcpConfig, nf: int, nm: int) -> IcpConfig:
     """The configuration with its matcher and gate resolved as the JAX
     package resolves them; the dispatch is the planner's
     (``_plan_dispatch``). (``approx_knn`` runs the exact k-NN, as the JAX
     package does off the TPU.)"""
-    match = cfg.match_method
-    if match == "auto":
-        has_radius = cfg.match_radius > 0 or cfg.overlap_enabled
-        big = cfg.correspondences * nm > MATCH_AUTO_PAIR_BUDGET
-        match = "grid" if (big and has_radius) else "brute"
+    cfg = resolve_match_method(cfg, cfg.correspondences, nm)
     gate = cfg.gate_method
     if cfg.overlap_enabled and gate == "auto" and nf * nm <= GATE_AUTO_BRUTE_PAIRS:
         gate = "brute"
     # "dilate", and "auto" above 2^40 pairs, are resolved by the plan
     # (_resolve_gate), which needs the transformed cloud's bounding box.
-    return dataclasses.replace(cfg, match_method=match, gate_method=gate)
+    return dataclasses.replace(cfg, gate_method=gate)
 
 
 def _resolve_gate(cfg: IcpConfig, nf: int, nm: int, bbox_fn):

@@ -169,6 +169,22 @@ def nn_search(queries: torch.Tensor, refs: torch.Tensor, *,
     return unpair(one, *nn_search_plain(queries, refs, ref_mask))
 
 
+def nn_search_auto(queries: torch.Tensor, refs: torch.Tensor, *,
+                   ref_tile: int = 4096, query_tile: int = 2048,
+                   ref_mask: Optional[torch.Tensor] = None,
+                   use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``nn_search`` under the JAX package's signature: on a CUDA tensor the
+    1-NN kernel, on the CPU its plain version. ``use_pallas=False`` takes
+    the plain version on either device, as the JAX function takes its lax
+    kernel; both give the same bits. ``ref_tile`` and ``query_tile`` choose
+    tiles of the JAX package's lax kernel and change no result, so they are
+    accepted and ignored."""
+    del ref_tile, query_tile
+    if use_pallas:
+        return nn_search(queries, refs, ref_mask=ref_mask)
+    return nn_search_plain(queries, refs, ref_mask)
+
+
 def knn_search(queries: torch.Tensor, refs: torch.Tensor, k: int, *,
                ref_mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -16,12 +16,15 @@ with no arguments reads them.
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from .mesh import local_device
+
+_log = logging.getLogger(__name__)
 
 
 def initialize_multihost(
@@ -39,7 +42,12 @@ def initialize_multihost(
     ``backend`` is NCCL when this process has a card and gloo otherwise;
     pass "gloo" for processes that share one card (NCCL refuses two ranks
     on one device). With a card, this process's current device becomes the
-    card of its local rank."""
+    card of its local rank. Without one, this process runs on one torch
+    thread from here on, as ``launch.run``'s CPU ranks do: a CPU sum over
+    more rows than a thread's grain adds in another order on more threads,
+    so ranks on hosts with different core counts would compute different
+    bits of the replicated state (H, the stop flag) and then wait in
+    different collectives."""
     if dist.is_initialized():
         return
     if backend is None:
@@ -56,6 +64,11 @@ def initialize_multihost(
     dev = local_device()
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    else:
+        _log.info("initialize_multihost: a CPU rank runs on one torch thread "
+                  "(was %d), so that every rank sums in the same order",
+                  torch.get_num_threads())
+        torch.set_num_threads(1)
 
 
 def process_info() -> tuple[int, int]:

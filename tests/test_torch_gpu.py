@@ -1039,3 +1039,27 @@ def test_sharded_world_one_on_the_card(cuda, case):
     assert torch.equal(res_c.m_idx, ref_c.m_idx)
     assert launches["knn_search"] == 1
     assert launches["match_transform"] == (0 if case == "grid" else int(res.n_iterations))
+
+
+def test_profiling_trace_names_the_kernels(cuda, tmp_path):
+    """utils.profiling.trace around a registration on the card writes a
+    Chrome trace whose device events name the match and the k-NN kernels
+    (their symbols in csrc/knn.cu)."""
+    import json
+
+    from simpleicp_tpu_torch import IcpConfig, icp_register
+    from simpleicp_tpu_torch.utils.profiling import trace
+
+    rng = np.random.default_rng(12)
+    xy = rng.uniform(-2, 2, (20000, 2))
+    X = np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+    cfg = IcpConfig(correspondences=500, max_iterations=10)
+    icp_register(X, X + [0.02, -0.01, 0.01], cfg)  # build and warm up outside the trace
+    with trace(str(tmp_path)) as path:
+        res = icp_register(X, X + [0.02, -0.01, 0.01], cfg)
+        torch.cuda.synchronize()
+    assert int(res.error_code) == 0
+    names = {e.get("name", "") for e in json.loads(open(path).read())["traceEvents"]
+             if e.get("cat") == "kernel"}
+    for symbol in ("match_scan", "knn_scan"):
+        assert any(symbol in n for n in names), (symbol, sorted(names)[:20])

@@ -299,11 +299,13 @@ def multihost_group():
     from simpleicp_tpu_torch.parallel import initialize_multihost, process_info
 
     assert process_info() == (0, 1)
+    threads = torch.get_num_threads()  # initialize_multihost pins a CPU rank
     initialize_multihost(f"localhost:{_free_port()}", 1, 0)
     try:
         yield
     finally:
         dist.destroy_process_group()
+        torch.set_num_threads(threads)
 
 
 def test_multihost_refusals_and_auto_gate(multihost_group, monkeypatch):
