@@ -90,6 +90,15 @@ Phases, each printing one JSON object on a line of its own:
            against read_xyz_plain and write_xyz against write_xyz_plain on
            that 1.2M file (in turns: plain, native, native, plain),
            bit-equal arrays and byte-equal files;
+  install  the installed program: a wheel of the checkout (pip, from a copy
+           of the tree, no network) installed into a fresh venv; its
+           simpleicp-tpu-torch console script, started from outside the
+           checkout with no checkout on its path, on the cli phase's dilate
+           1.2M pair: it imports the installed package, builds libknn,
+           libdilate and libnative from the installed sources into the
+           installed package's empty _build/, launches all four kernels,
+           and exports a file byte-equal to the checkout CLI's; the wheel
+           build, install, wall, build and timing-line seconds;
   serve    the serving path, float32 on the card: prepare_fixed once on a
            1.34M fixed cloud and 4 movable clouds (each under its own rigid
            motion from the seed) registered against it, prepared and
@@ -171,8 +180,8 @@ import time
 from pathlib import Path
 
 PHASES = ("device", "build", "kernels", "main", "scale", "gated", "dilate",
-          "grid", "chunked", "policy", "cli", "serve", "batch", "sharded", "times",
-          "profile")
+          "grid", "chunked", "policy", "cli", "install", "serve", "batch", "sharded",
+          "times", "profile")
 KERNELS = ("match_transform", "knn_search", "nn_search", "dilate")
 SOURCES = {
     "match_transform": "simpleicp_tpu_torch/csrc/knn.cu",
@@ -1878,16 +1887,17 @@ def io_times(X, path, d):
             "file_bytes": os.path.getsize(path), "bit_equal": True, "byte_equal": True}
 
 
-def phase_cli(torch):
+def phase_cli(torch, d):
     """The CLI as a user starts it, in a subprocess on the card: a gated
-    100k pair, and the dilate 1.2M pair with its launches counted; the
-    exported clouds read back; then the native xyz I/O against numpy on the
-    1.2M file. Returns the 1.2M run's launches."""
+    100k pair, and the dilate 1.2M pair (its files in ``d``) with its
+    launches counted; the exported clouds read back; then the native xyz
+    I/O against numpy on the 1.2M file. Returns the 1.2M run
+    (cli_dilate_run)."""
     from simpleicp_tpu_torch.utils.xyz_io import read_xyz, write_xyz
 
     X_fix, X_mov, t, _ = partial_pair(N_MAIN, SEED + 6)
-    with tempfile.TemporaryDirectory() as d:
-        f1, f2, out = (os.path.join(d, n) for n in ("fix.xyz", "mov.xyz", "out.xyz"))
+    with tempfile.TemporaryDirectory() as g:
+        f1, f2, out = (os.path.join(g, n) for n in ("fix.xyz", "mov.xyz", "out.xyz"))
         write_xyz(f1, X_fix, fmt="%.6f")
         write_xyz(f2, X_mov, fmt="%.6f")
         rc, log, seconds, _ = run_cli(["-f", f1, "-m", f2, "-o", str(GATE_RADIUS),
@@ -1899,39 +1909,253 @@ def phase_cli(torch):
           "exit_code": rc, "wall_s": seconds, "finished_line": finished,
           "export_max_abs_err": err})
 
-    X_fix, X_mov, t, _ = partial_pair(N_DILATE, SEED + 8, N_DILATE / N_MAIN)
-    with tempfile.TemporaryDirectory() as d:
-        f1, f2, out = (os.path.join(d, n) for n in ("fix.xyz", "mov.xyz", "out.xyz"))
-        t0 = time.perf_counter()
-        write_xyz(f1, X_fix)  # the CLI's default %.3f
-        write_xyz(f2, X_mov)
-        write_s = time.perf_counter() - t0
-        rc, log, seconds, launches = run_cli(["-f", f1, "-m", f2, "-o", str(GATE_RADIUS),
-                                              "--export", out], counted=True)
-        finished = check_cli_run(rc, log, "dilate 1.2M")
-        check(launches is not None, f"CLI dilate 1.2M printed no launch counts: {log[-2000:]}")
-        # auto plans the dilate gate: one dilation run, the band sweep in
-        # the 1-NN's d2-only mode, one k-NN, one match an iteration
-        check(launches["dilate"] >= 1 and launches["nn_search_d2"] >= 1
-              and launches["nn_search"] == 0 and launches["knn_search"] == 1
-              and launches["match_transform"] >= 1,
-              f"CLI dilate 1.2M: kernel launches {launches}")
-        X_in = read_xyz(f2)
-        err = export_err(read_xyz(out), X_in, N_DILATE, "dilate 1.2M")
-        timing = {}
-        for ln in log.splitlines():
-            for name in CLI_TIMINGS:
-                if ln.startswith(f"timing: {name} "):
-                    timing[name] = float(ln.split()[-2])
-        check(set(timing) == set(CLI_TIMINGS), f"CLI dilate 1.2M: timing lines {timing}")
-        io = io_times(X_in, f2, d)
+    run = cli_dilate_run(d)
     emit({"phase": "cli", "part": "dilate 1.2M", "command": "python3 -m simpleicp_tpu_torch "
           f"-f fix.xyz -m mov.xyz -o {GATE_RADIUS} --export out.xyz (run as -m runs it, "
           "by runpy in chip_smoke.py --cli-counted, which counts the launches)",
-          "n_points": N_DILATE, "input_format": "%.3f", "inputs_written_s": write_s,
+          "n_points": N_DILATE, "input_format": "%.3f", "inputs_written_s": run["write_s"],
+          "exit_code": run["exit_code"], "wall_s": run["wall_s"], "finished_line": run["finished"],
+          "cli_timing_s": run["timing"], "launches": run["launches"],
+          "export_max_abs_err": run["err"], "xyz_io": io_times(run.pop("X_mov"), run["mov"], d)})
+    return run
+
+
+def dilate_cli_args(f1, f2, out):
+    return ["-f", str(f1), "-m", str(f2), "-o", str(GATE_RADIUS), "--export", str(out)]
+
+
+def cli_timings(log, what):
+    """The CLI's ``timing:`` lines (seconds by name); all of CLI_TIMINGS."""
+    timing = {}
+    for ln in log.splitlines():
+        for name in CLI_TIMINGS:
+            if ln.startswith(f"timing: {name} "):
+                timing[name] = float(ln.split()[-2])
+    check(set(timing) == set(CLI_TIMINGS), f"CLI {what}: timing lines {timing}")
+    return timing
+
+
+def check_dilate_launches(launches, what):
+    # auto plans the dilate gate: one dilation run, the band sweep in the
+    # 1-NN's d2-only mode, one k-NN, one match an iteration
+    check(launches is not None, f"CLI {what} printed no launch counts")
+    check(launches["dilate"] >= 1 and launches["nn_search_d2"] >= 1
+          and launches["nn_search"] == 0 and launches["knn_search"] == 1
+          and launches["match_transform"] >= 1, f"CLI {what}: kernel launches {launches}")
+
+
+def cli_dilate_run(d):
+    """The checkout's CLI on the dilate 1.2M pair, written into ``d`` at the
+    CLI's default %.3f with the port's writer (``d``/fix.xyz, mov.xyz;
+    export ``d``/out.xyz), its launches counted in its process: the run,
+    its checks and its numbers."""
+    from simpleicp_tpu_torch.utils.xyz_io import read_xyz, write_xyz
+
+    X_fix, X_mov, t, _ = partial_pair(N_DILATE, SEED + 8, N_DILATE / N_MAIN)
+    f1, f2, out = (os.path.join(d, n) for n in ("fix.xyz", "mov.xyz", "out.xyz"))
+    t0 = time.perf_counter()
+    write_xyz(f1, X_fix)  # the CLI's default %.3f
+    write_xyz(f2, X_mov)
+    write_s = time.perf_counter() - t0
+    rc, log, seconds, launches = run_cli(dilate_cli_args(f1, f2, out), counted=True)
+    finished = check_cli_run(rc, log, "dilate 1.2M")
+    check_dilate_launches(launches, "dilate 1.2M")
+    X_in = read_xyz(f2)
+    return {"fix": f1, "mov": f2, "out": out, "log": log, "exit_code": rc, "write_s": write_s,
+            "wall_s": seconds, "finished": finished, "launches": launches,
+            "timing": cli_timings(log, "dilate 1.2M"), "X_mov": X_in,
+            "err": export_err(read_xyz(out), X_in, N_DILATE, "dilate 1.2M")}
+
+
+# The installed program: a wheel of the checkout, built by pip from a copy
+# of the packaging files and both packages (so that the checkout gains no
+# build/ and no egg-info), installed with no network into a fresh venv that
+# sees this interpreter's site-packages (torch, numpy, pip, setuptools)
+# through a .pth file and never the checkout. A second .pth file of that
+# venv imports PORT_REPORT_MODULE, which prints on standard error, as the
+# process exits, where simpleicp_tpu_torch was imported from, its kernel
+# launches and the libraries it built (``PORT_REPORT {...}``): the console
+# script itself runs unchanged.
+WHEEL_FILES = ("pyproject.toml", "README.md")
+WHEEL_PACKAGES = ("simpleicp_tpu", "simpleicp_tpu_torch")
+WHEEL_IGNORE = ("_build", "__pycache__", "*.so", "build", "*.egg-info")
+PORT_REPORT_MODULE = """\
+import atexit
+import json
+import sys
+
+
+def _report():
+    pkg = sys.modules.get("simpleicp_tpu_torch")
+    if pkg is None:
+        return
+    from simpleicp_tpu_torch import _build
+    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
+
+    print("PORT_REPORT " + json.dumps({
+        "file": pkg.__file__, "sys_path": sys.path,
+        "launches": {**knn_cuda.LAUNCHES, **dilate_cuda.LAUNCHES},
+        "build_s": _build.BUILD_SECONDS,
+        "foreign": sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "jaxlib", "simpleicp_tpu"))}),
+        file=sys.stderr, flush=True)
+
+
+atexit.register(_report)
+"""
+
+
+def copy_tree(dst):
+    """The packaging files and both packages of the checkout, copied to
+    ``dst`` without built files."""
+    import shutil
+
+    dst = Path(dst)
+    dst.mkdir(parents=True)
+    for name in WHEEL_FILES:
+        shutil.copy2(ROOT / name, dst / name)
+    for pkg in WHEEL_PACKAGES:
+        shutil.copytree(ROOT / pkg, dst / pkg, ignore=shutil.ignore_patterns(*WHEEL_IGNORE))
+    return dst
+
+
+def build_wheel(src, out):
+    """The wheel that ``pip wheel`` builds of the tree ``src`` into ``out``,
+    with no network, no build isolation and no cache."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pip", "wheel", "--no-deps", "--no-build-isolation",
+         "--no-index", "--no-cache-dir", "--disable-pip-version-check", "-q",
+         "-w", str(out), str(src)], capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"pip wheel failed ({proc.returncode}):\n"
+          f"{(proc.stdout + proc.stderr)[-3000:]}")
+    wheels = sorted(Path(out).glob("simpleicp_tpu-*.whl"))
+    check(len(wheels) == 1, f"pip wheel made {wheels}")
+    return wheels[0]
+
+
+def install_wheel(wheel, prefix):
+    """``wheel`` installed into a fresh venv at ``prefix`` (see above):
+    (its bin directory, its site-packages)."""
+    import site
+
+    prefix = Path(prefix)
+    proc = subprocess.run([sys.executable, "-m", "venv", "--without-pip", str(prefix)],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"python -m venv failed: {proc.stdout + proc.stderr}")
+    bin_dir = prefix / "bin"
+    sp = Path(subprocess.run(
+        [str(bin_dir / "python"), "-c", "import sysconfig; print(sysconfig.get_paths()['purelib'])"],
+        capture_output=True, text=True, timeout=120, check=True).stdout.strip())
+    host = site.getsitepackages() + ([site.getusersitepackages()] if site.ENABLE_USER_SITE
+                                     else [])
+    host = [h for h in dict.fromkeys(os.path.realpath(h) for h in host)
+            if os.path.isdir(h) and Path(ROOT) not in (Path(h), *Path(h).parents)]
+    (sp / "_host_env.pth").write_text("".join(h + "\n" for h in host))
+    (sp / "_port_report.py").write_text(PORT_REPORT_MODULE)
+    (sp / "_port_report.pth").write_text("import _port_report\n")
+    proc = subprocess.run(
+        [str(bin_dir / "python"), "-m", "pip", "install", "--no-deps", "--no-index",
+         "--no-build-isolation", "--no-cache-dir", "--disable-pip-version-check", "-q",
+         str(wheel)], capture_output=True, text=True, timeout=600, env=isolated_env())
+    check(proc.returncode == 0, f"pip install of {wheel.name} failed ({proc.returncode}):\n"
+          f"{(proc.stdout + proc.stderr)[-3000:]}")
+    return bin_dir, sp
+
+
+def isolated_env(extra=None):
+    """This process's environment without the variables that could put the
+    checkout on a child's path."""
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "PYTHONHOME")}
+    return {**env, **(extra or {})}
+
+
+def run_installed(bin_dir, args, cwd):
+    """The installed ``simpleicp-tpu-torch`` console script in a subprocess
+    from ``cwd``: (exit code, its output without the report, wall seconds,
+    the PORT_REPORT of its process or None)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(Path(bin_dir) / "simpleicp-tpu-torch"), *args], cwd=cwd,
+                          env=isolated_env(CLI_ENV), capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stderr.splitlines()
+    reports = [ln for ln in lines if ln.startswith("PORT_REPORT ")]
+    report = json.loads(reports[-1].split(" ", 1)[1]) if reports else None
+    log = proc.stdout + "".join(ln + "\n" for ln in lines if not ln.startswith("PORT_REPORT "))
+    return proc.returncode, log, seconds, report
+
+
+def check_installed(report, site_dir, what):
+    """The installed process imported the package from ``site_dir``, had
+    no checkout on its path and imported no JAX."""
+    check(report is not None, f"{what}: the installed process printed no PORT_REPORT")
+    file = Path(report["file"]).resolve()
+    check(Path(site_dir).resolve() in file.parents,
+          f"{what}: simpleicp_tpu_torch came from {file}, not from {site_dir}")
+    check(all(Path(ROOT) not in (Path(p).resolve(), *Path(p).resolve().parents)
+              for p in report["sys_path"] if p),
+          f"{what}: the checkout is on the installed process's path {report['sys_path']}")
+    check(not report["foreign"], f"{what}: imported {report['foreign']}")
+
+
+def h_rows(log):
+    """The four rows under the CLI's ``Estimated transformation matrix H:``."""
+    lines = log.splitlines()
+    at = [i for i, ln in enumerate(lines) if "Estimated transformation matrix H:" in ln]
+    return lines[at[-1] + 1:at[-1] + 5] if at else []
+
+
+def phase_install(torch, d, run=None):
+    """The installed program on the card: the console script, started from
+    a directory outside the checkout with no checkout on its path, builds
+    its three libraries from the installed sources into the installed
+    package and registers the dilate 1.2M pair (all four kernels), its
+    export byte-equal to the checkout CLI's (``run``, cli_dilate_run's
+    result, made here into ``d`` when the cli phase did not run)."""
+    t_phase = time.perf_counter()
+    run = run or cli_dilate_run(d)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp).resolve()
+        check(ROOT not in tmp.parents, f"{tmp} lies in the checkout")
+        t0 = time.perf_counter()
+        wheel = build_wheel(copy_tree(tmp / "src"), tmp / "wheel")
+        wheel_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bin_dir, sp = install_wheel(wheel, tmp / "prefix")
+        install_s = time.perf_counter() - t0
+        build_dir = sp / "simpleicp_tpu_torch" / "_build"
+        check(not build_dir.exists() or not any(build_dir.iterdir()),
+              f"the installed package's {build_dir} is not empty before the run")
+        work = tmp / "work"
+        work.mkdir()
+        out = work / "out.xyz"
+        rc, log, seconds, report = run_installed(
+            bin_dir, dilate_cli_args(run["fix"], run["mov"], out), work)
+        what = "installed dilate 1.2M"
+        finished = check_cli_run(rc, log, what)
+        check_installed(report, sp, what)
+        built = {lib: sorted(p.name for p in build_dir.glob(f"lib{lib}-*.so"))
+                 for lib in ("knn", "dilate", "native")}
+        check(all(len(v) == 1 for v in built.values()), f"{what}: built {built}")
+        check(set(report["build_s"]) == set(built),
+              f"{what}: libraries built in its process {report['build_s']}")
+        launches = report["launches"]
+        check_dilate_launches(launches, what)
+        check(out.read_bytes() == Path(run["out"]).read_bytes(),
+              f"{what}: the export is not byte-equal to the checkout CLI's")
+        check(h_rows(log) == h_rows(run["log"]) and len(h_rows(log)) == 4,
+              f"{what}: H rows {h_rows(log)} against the checkout's {h_rows(run['log'])}")
+        timing = cli_timings(log, what)
+        wheel_name, wheel_bytes = wheel.name, wheel.stat().st_size
+    emit({"phase": "install", "part": "dilate 1.2M", "command": "simpleicp-tpu-torch "
+          f"-f fix.xyz -m mov.xyz -o {GATE_RADIUS} --export out.xyz (the console script "
+          "of a wheel of the checkout, installed into a fresh venv)", "wheel": wheel_name,
+          "wheel_bytes": wheel_bytes, "wheel_build_s": wheel_s, "install_s": install_s,
           "exit_code": rc, "wall_s": seconds, "finished_line": finished,
-          "cli_timing_s": timing, "launches": launches, "export_max_abs_err": err,
-          "xyz_io": io})
+          "build_s": report["build_s"], "built": built, "cli_timing_s": timing,
+          "launches": launches, "export_byte_equal": True,
+          "checkout_wall_s": run["wall_s"], "checkout_cli_timing_s": run["timing"],
+          "checkout_launches": run["launches"], "phase_s": time.perf_counter() - t_phase})
     return launches
 
 
@@ -3279,7 +3503,9 @@ def main(argv=None) -> int:
     if "policy" in phases:
         phase_policy(torch)
     errs = cmp.err if "kernels" in phases else None
-    cli = phase_cli(torch) if "cli" in phases else None
+    with tempfile.TemporaryDirectory() as cli_dir:
+        cli = phase_cli(torch, cli_dir) if "cli" in phases else None
+        installed = phase_install(torch, cli_dir, cli) if "install" in phases else None
     serve = phase_serve(torch, cmp) if "serve" in phases else None
     batch = phase_batch(torch, cmp) if "batch" in phases else None
     sharded = phase_sharded(torch, smi_line) if "sharded" in phases else None
@@ -3303,7 +3529,9 @@ def main(argv=None) -> int:
         # grid engines, PyTorch operations); and on the chunked path
         # (chunked_launches): every kernel over the chunked phase's runs
         # (the 1-NN's two modes summed); and on the CLI's path
-        # (cli_launches): the dilate 1.2M CLI run, in its own process.
+        # (cli_launches): the dilate 1.2M CLI run, in its own process; and
+        # on the installed program's (install_launches): the installed
+        # console script's run of that pair.
         modes = {"d2_only": gated_launches["nn_search_d2"], "index": gated_launches["nn_search"]}
         launches = {**main_info[0], "nn_search": sum(modes.values()),
                     "dilate": dil["launches"]["dilate"]}
@@ -3321,8 +3549,10 @@ def main(argv=None) -> int:
              **({} if batch is None else {"batch_launches": batch.get(name, 0)}),
              **({} if sharded is None else {"sharded_launches": sharded[name]}),
              **({} if grid is None else {"grid_launches": grid.get(name, 0)}),
-             **({} if cli is None else {"cli_launches": cli[name] + (
-                 cli["nn_search_d2"] if name == "nn_search" else 0)}),
+             **({} if cli is None else {"cli_launches": cli["launches"][name] + (
+                 cli["launches"]["nn_search_d2"] if name == "nn_search" else 0)}),
+             **({} if installed is None else {"install_launches": installed[name] + (
+                 installed["nn_search_d2"] if name == "nn_search" else 0)}),
              **({} if chunked is None else {"chunked_launches": chunked.get(name, 0) + (
                  chunked.get("nn_search_d2", 0) if name == "nn_search" else 0)})}
             for name in KERNELS

@@ -9,7 +9,9 @@ loaded. nvcc is looked up in ``$CUDA_HOME``, then on ``PATH``, then in the
 toolkit's default prefix ``/usr/local/cuda``; the host compiler is ``$CXX``,
 else ``g++``. A library is compiled to a file of its process's own and
 moved into place, so processes that build it at once do not collide.
-Nothing here runs at import.
+The sources are package data (``pyproject.toml``), so an installed package
+builds into its own ``_build/`` as a checkout does; one that lacks a
+source raises RuntimeError naming it. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
@@ -39,6 +42,9 @@ CXX_FLAGS = ("-std=c++17", "-O3", "-Wall", "-Wextra", "-shared", "-fPIC", "-pthr
 # nvcc's output (with the -Xptxas -v register and shared-memory lines) of
 # each library built or found in this process.
 BUILD_LOGS: Dict[str, str] = {}
+# Compiler wall seconds of each library this process built (not of one it
+# found built).
+BUILD_SECONDS: Dict[str, float] = {}
 
 _locks: Dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
@@ -71,15 +77,30 @@ def cxx_path() -> str:
     return found
 
 
+def _sources(name: str):
+    """The sources of ``name``, checked before any compiler is looked up:
+    a missing one (or no ``native/*.cpp`` at all) raises RuntimeError
+    naming its path."""
+    if name == NATIVE:
+        srcs = sorted(NATIVE_DIR.glob("*.cpp"))
+        missing = [] if srcs else [NATIVE_DIR / "*.cpp"]
+    else:
+        srcs = [SRC_DIR / f"{name}.cu"]
+        missing = [s for s in srcs if not s.is_file()]
+    if missing:
+        raise RuntimeError(
+            f"missing source {', '.join(map(str, missing))}: this install of "
+            "simpleicp_tpu_torch lacks the package's sources (csrc/*.cu and "
+            "native/*.cpp are package data, built at first use)"
+        )
+    return srcs
+
+
 def _job(name: str):
     """(target, compile command without its output path, sources) of
     ``name``: a ``csrc/`` source, or ``NATIVE``."""
-    if name == NATIVE:
-        tool, flags = cxx_path(), CXX_FLAGS
-        srcs = sorted(NATIVE_DIR.glob("*.cpp"))
-    else:
-        tool, flags = nvcc_path(), NVCC_FLAGS
-        srcs = [SRC_DIR / f"{name}.cu"]
+    srcs = _sources(name)
+    tool, flags = (cxx_path(), CXX_FLAGS) if name == NATIVE else (nvcc_path(), NVCC_FLAGS)
     h = hashlib.sha256(" ".join((os.path.basename(tool), *flags)).encode())
     for src in srcs:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
@@ -90,8 +111,8 @@ def build(name: str) -> Path:
     """Path of the built library of ``csrc/<name>.cu`` (or of ``native/``
     for ``NATIVE``), compiling it first if these sources and flags were
     never built. Distinct libraries build concurrently; a second caller of
-    one waits for the first. A failed compile raises RuntimeError with the
-    compiler's output."""
+    one waits for the first. A missing source or a failed compile raises
+    RuntimeError, with the source's path or the compiler's output."""
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
@@ -103,8 +124,10 @@ def build(name: str) -> Path:
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
         proc = subprocess.run([*cmd, "-o", str(tmp), *map(str, srcs)],
                               capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"{os.path.basename(cmd[0])} failed on "
@@ -112,6 +135,7 @@ def build(name: str) -> Path:
         os.replace(tmp, out)
         log_path.write_text(log)
         BUILD_LOGS[name] = log
+        BUILD_SECONDS[name] = seconds
         return out
 
 
