@@ -85,6 +85,7 @@ from ..ops.transform import (
 )
 from ..utils import device_policy
 from ..utils.device import resolve
+from ..utils.profiling import span
 from ..utils.sync import read_array, read_flag, read_nonzero
 from .solver import estimate_uncertainties, gn_solve, host_rotation, linearized_solve
 
@@ -272,38 +273,43 @@ def _gate_select_stages(Xf, Xm, H0, *, cfg: IcpConfig, mov_host=None, obs_host=N
     lead, nf = Xf.shape[:-2], Xf.shape[-2]
     C = cfg.correspondences
     if not cfg.overlap_enabled:
-        return (*_ungated_selection(nf, C, dev, lead), np.full(lead, ERR_OK, np.int32))
-    # The initial transform applies before the gate. One transformed cloud
-    # serves the dilate gate's bounding box, its occupancy and its exact
-    # sweeps, and the grid gate's cell list, so their masks are the brute
-    # gate's bit for bit.
-    Xm0 = apply_H(Xm, H0)
-    method, plan = _resolve_gate(cfg, nf, Xm.shape[-2], lambda: read_array(bbox_of(Xm0)))
-    if method == "dilate":
-        sel_mask = overlap_mask_dilate(Xf, Xm0, cfg.max_overlap_distance, plan)
-    else:
-        if method == "grid":
-            X_host = (None if mov_host is None or cfg.grid_cell_cap
-                      else _initial_moved_host(mov_host, obs_host))
-            grid, cap = _grid_with_cap(Xm0, cfg.max_overlap_distance,
-                                       cfg.grid_cell_cap, X_host)
-            d2, _ = grid_query_sorted(Xf, grid[0], grid[1], grid[3],
-                                      cfg.max_overlap_distance, cell_cap=cap,
-                                      run_end=grid[4])
+        with span("icp.select"):
+            return (*_ungated_selection(nf, C, dev, lead), np.full(lead, ERR_OK, np.int32))
+    with span("icp.gate"):
+        # The initial transform applies before the gate. One transformed cloud
+        # serves the dilate gate's bounding box, its occupancy and its exact
+        # sweeps, and the grid gate's cell list, so their masks are the brute
+        # gate's bit for bit.
+        Xm0 = apply_H(Xm, H0)
+        with span("icp.gate_plan"):
+            method, plan = _resolve_gate(cfg, nf, Xm.shape[-2],
+                                         lambda: read_array(bbox_of(Xm0)))
+        if method == "dilate":
+            sel_mask = overlap_mask_dilate(Xf, Xm0, cfg.max_overlap_distance, plan)
         else:
-            d2 = min_dist_sq(Xf, Xm0)
-        # The radius is cast to the coordinate dtype before it is squared.
-        r = torch.tensor(cfg.max_overlap_distance, dtype=Xf.dtype, device=dev)
-        sel_mask = d2 <= r ** 2
-    # One host read for the whole batch: each pair's count of survivors.
-    counts = read_array(sel_mask.sum(dim=-1))
+            if method == "grid":
+                X_host = (None if mov_host is None or cfg.grid_cell_cap
+                          else _initial_moved_host(mov_host, obs_host))
+                grid, cap = _grid_with_cap(Xm0, cfg.max_overlap_distance,
+                                           cfg.grid_cell_cap, X_host)
+                d2, _ = grid_query_sorted(Xf, grid[0], grid[1], grid[3],
+                                          cfg.max_overlap_distance, cell_cap=cap,
+                                          run_end=grid[4])
+            else:
+                d2 = min_dist_sq(Xf, Xm0)
+            # The radius is cast to the coordinate dtype before it is squared.
+            r = torch.tensor(cfg.max_overlap_distance, dtype=Xf.dtype, device=dev)
+            sel_mask = d2 <= r ** 2
+        # One host read for the whole batch: each pair's count of survivors.
+        counts = read_array(sel_mask.sum(dim=-1))
     error = np.where(counts == 0, ERR_NO_OVERLAP, ERR_OK).astype(np.int32)
-    if not counts.all():
-        # No fixed point of a pair survives: its selection runs over all of
-        # them and the loop runs no iteration for it.
-        sel_mask = sel_mask | torch.as_tensor(counts == 0, device=dev)[..., None]
-        counts = np.where(counts == 0, nf, counts)
-    sel_idx, sel_valid = _select_n(sel_mask, C, counts)
+    with span("icp.select"):
+        if not counts.all():
+            # No fixed point of a pair survives: its selection runs over all of
+            # them and the loop runs no iteration for it.
+            sel_mask = sel_mask | torch.as_tensor(counts == 0, device=dev)[..., None]
+            counts = np.where(counts == 0, nf, counts)
+        sel_idx, sel_valid = _select_n(sel_mask, C, counts)
     return sel_idx, sel_valid, error
 
 
@@ -464,16 +470,15 @@ def _keep_stopped(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
 
 
 def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
-                 cfg: IcpConfig, dtype, error0, H0, match_fn, gather_fn,
-                 mov_planarity_fn=None, carry_in=None, it_hi=None):
+                 cfg: IcpConfig, dtype, error0, H0, match_fn,
+                 mov_planarity_fn=None, carry_in=None, it_hi=None) -> _Carry:
     """The match -> reject -> solve -> converge iteration of B pairs at
     once: Q, normals (B, C, 3), planarity, sel_valid (B, C), obs_vals,
     obs_w (B, 6), H0 (B, 4, 4).
 
     ``match_fn(Ht) -> (m_idx, m_t, m_orig, m_valid)`` matches each pair
-    against its movable cloud moved by its Ht; ``gather_fn(m_idx) -> (B, C,
-    3)`` fetches original-frame movable points for the uncertainty
-    estimate; ``mov_planarity_fn(m_idx) -> (B, C)``, when given, is the
+    against its movable cloud moved by its Ht; ``mov_planarity_fn(m_idx) ->
+    (B, C)``, when given, is the
     matched movable points' planarity, gated like the fixed side's.
     ``error0`` is the host int array (B,) of error codes the pairs start
     from (ERR_NO_OVERLAP from the gate runs no iteration).
@@ -495,10 +500,10 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
     monolithic loop reads there, so K iterations a call compose to the
     monolithic loop bit for bit and with its host reads. The carry's
     buffers are updated in place: a caller keeps no reference to an
-    earlier chunk's carry. Without ``gather_fn`` the uncertainty estimate
-    is left to the caller (``_uncertainties`` of the final carry).
+    earlier chunk's carry.
 
-    Returns (final_carry, uncertainties, covariance).
+    Returns the final carry; the uncertainty estimate is the caller's
+    (``_uncertainties`` of the final carry).
     """
     T = cfg.max_iterations
     B = Q.shape[0]
@@ -519,88 +524,93 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
         )
 
     def body(c: _Carry, active: Optional[torch.Tensor]) -> _Carry:
-        Ht = rbp_to_H(c.p) if nonlinear else c.H
-        m_idx, m_t, m_orig, m_valid = match_fn(Ht)
-        d = ((m_t - Q) * normals).sum(dim=-1)  # signed p2plane distances
+        with span("icp.match"):
+            Ht = rbp_to_H(c.p) if nonlinear else c.H
+            m_idx, m_t, m_orig, m_valid = match_fn(Ht)
 
-        # "python": planarity gate first, median/MAD of the survivors;
-        # "joint": median/MAD of all matches, both criteria jointly.
-        matched = sel_valid & m_valid
-        mask_p = matched & (planarity >= min_planarity)
-        if mov_planarity_fn is not None:
-            mask_p = mask_p & (mov_planarity_fn(m_idx) >= min_planarity)
-        mad_base = matched if cfg.rejection_staging == "joint" else mask_p
-        med = masked_median(d, mad_base)
-        sigma = 3.0 * masked_mad(d, mad_base, scale=cfg.mad_scale)
-        mask = mask_p & (torch.abs(d - med[:, None]) <= sigma[:, None])
+        with span("icp.reject"):
+            d = ((m_t - Q) * normals).sum(dim=-1)  # signed p2plane distances
 
-        count = mask.sum(dim=-1).to(torch.int32)
-        err = torch.where(count < 6, torch.full_like(c.error, ERR_TOO_FEW_CORRESPONDENCES),
-                          c.error)
+            # "python": planarity gate first, median/MAD of the survivors;
+            # "joint": median/MAD of all matches, both criteria jointly.
+            matched = sel_valid & m_valid
+            mask_p = matched & (planarity >= min_planarity)
+            if mov_planarity_fn is not None:
+                mask_p = mask_p & (mov_planarity_fn(m_idx) >= min_planarity)
+            mad_base = matched if cfg.rejection_staging == "joint" else mask_p
+            med = masked_median(d, mad_base)
+            sigma = 3.0 * masked_mad(d, mad_base, scale=cfg.mad_scale)
+            mask = mask_p & (torch.abs(d - med[:, None]) <= sigma[:, None])
 
-        if c.it == 0:
-            orig_count = count
-            orig_mean = masked_mean(d, mask)
-            orig_std = masked_std(d, mask, ddof=cfg.std_ddof)
-        else:
-            orig_count, orig_mean, orig_std = c.orig_count, c.orig_mean, c.orig_std
+            count = mask.sum(dim=-1).to(torch.int32)
+            err = torch.where(count < 6, torch.full_like(c.error, ERR_TOO_FEW_CORRESPONDENCES),
+                              c.error)
 
-        if auto_dw and c.it == 0:
-            # 1/std^2 of the matched distances, estimated in iteration 0
-            dw = 1.0 / torch.clamp(masked_std(d, mask), min=1e-30) ** 2
-        else:
-            dw = c.dist_w
+            if c.it == 0:
+                orig_count = count
+                orig_mean = masked_mean(d, mask)
+                orig_std = masked_std(d, mask, ddof=cfg.std_ddof)
+            else:
+                orig_count, orig_mean, orig_std = c.orig_count, c.orig_mean, c.orig_std
 
-        if nonlinear:
-            p_new, residuals, gn_rel = gn_solve(
-                c.p, m_orig, Q, normals, mask, dw, obs_vals, obs_w,
-                n_steps=cfg.gn_iterations, active=active,
+            if auto_dw and c.it == 0:
+                # 1/std^2 of the matched distances, estimated in iteration 0
+                dw = 1.0 / torch.clamp(masked_std(d, mask), min=1e-30) ** 2
+            else:
+                dw = c.dist_w
+
+        with span("icp.solve"):
+            if nonlinear:
+                p_new, residuals, gn_rel = gn_solve(
+                    c.p, m_orig, Q, normals, mask, dw, obs_vals, obs_w,
+                    n_steps=cfg.gn_iterations, active=active,
+                )
+                H_new = rbp_to_H(p_new)
+            else:
+                gn_rel = torch.zeros(B, dtype=dtype, device=Q.device)
+                dH, residuals, _ = linearized_solve(m_t, Q, normals, mask)
+                H_new = compose_H(dH, c.H)
+                a1, a2, a3 = rotation_matrix_to_euler_angles(H_new)
+                p_new = torch.cat([torch.stack([a1, a2, a3], dim=-1), H_new[:, :3, 3]], dim=-1)
+
+        with span("icp.converge"):
+            mean = masked_mean(residuals, mask)
+            std = masked_std(residuals, mask, ddof=cfg.std_ddof)
+            converged = crit_met(mean, c.prev_mean) & crit_met(std, c.prev_std)
+            if c.it == 0:
+                converged = torch.zeros_like(converged)
+
+            # On error keep the previous state.
+            bad = err != ERR_OK
+            new = dict(
+                p=torch.where(bad[:, None], c.p, p_new),
+                H=torch.where(bad[:, None, None], c.H, H_new),
+                dist_w=dw,
+                converged=converged & ~bad,
+                error=err,
+                prev_mean=mean,
+                prev_std=std,
+                orig_count=orig_count,
+                orig_mean=orig_mean,
+                orig_std=orig_std,
+                residuals=torch.where(bad[:, None], c.residuals, residuals),
+                residual_mask=torch.where(bad[:, None], c.residual_mask, mask),
+                m_idx=torch.where(bad[:, None], c.m_idx, m_idx),
             )
-            H_new = rbp_to_H(p_new)
-        else:
-            gn_rel = torch.zeros(B, dtype=dtype, device=Q.device)
-            dH, residuals, _ = linearized_solve(m_t, Q, normals, mask)
-            H_new = compose_H(dH, c.H)
-            a1, a2, a3 = rotation_matrix_to_euler_angles(H_new)
-            p_new = torch.cat([torch.stack([a1, a2, a3], dim=-1), H_new[:, :3, 3]], dim=-1)
-
-        mean = masked_mean(residuals, mask)
-        std = masked_std(residuals, mask, ddof=cfg.std_ddof)
-        converged = crit_met(mean, c.prev_mean) & crit_met(std, c.prev_std)
-        if c.it == 0:
-            converged = torch.zeros_like(converged)
-
-        # On error keep the previous state.
-        bad = err != ERR_OK
-        new = dict(
-            p=torch.where(bad[:, None], c.p, p_new),
-            H=torch.where(bad[:, None, None], c.H, H_new),
-            dist_w=dw,
-            converged=converged & ~bad,
-            error=err,
-            prev_mean=mean,
-            prev_std=std,
-            orig_count=orig_count,
-            orig_mean=orig_mean,
-            orig_std=orig_std,
-            residuals=torch.where(bad[:, None], c.residuals, residuals),
-            residual_mask=torch.where(bad[:, None], c.residual_mask, mask),
-            m_idx=torch.where(bad[:, None], c.m_idx, m_idx),
-        )
-        rows = {"iter_counts": count, "iter_means": mean, "iter_stds": std,
-                "iter_gn": gn_rel}
-        if c.it < c.iter_ps.shape[1]:
-            rows.update(iter_ps=new["p"], iter_midx=m_idx, iter_masks=mask, iter_dists=d)
-        if active is not None:
-            # A pair that has stopped keeps its state and its buffers' rows.
-            new = {k: _keep_stopped(active, v, getattr(c, k)) for k, v in new.items()}
-            rows = {k: _keep_stopped(active, v, getattr(c, k)[:, c.it])
-                    for k, v in rows.items()}
-            new["n_it"] = c.n_it + active.to(torch.int32)
-        # The buffers are this loop's own; they are updated in place.
-        for k, v in rows.items():
-            getattr(c, k)[:, c.it] = v
-        return c._replace(it=c.it + 1, **new)
+            rows = {"iter_counts": count, "iter_means": mean, "iter_stds": std,
+                    "iter_gn": gn_rel}
+            if c.it < c.iter_ps.shape[1]:
+                rows.update(iter_ps=new["p"], iter_midx=m_idx, iter_masks=mask, iter_dists=d)
+            if active is not None:
+                # A pair that has stopped keeps its state and its buffers' rows.
+                new = {k: _keep_stopped(active, v, getattr(c, k)) for k, v in new.items()}
+                rows = {k: _keep_stopped(active, v, getattr(c, k)[:, c.it])
+                        for k, v in rows.items()}
+                new["n_it"] = c.n_it + active.to(torch.int32)
+            # The buffers are this loop's own; they are updated in place.
+            for k, v in rows.items():
+                getattr(c, k)[:, c.it] = v
+            return c._replace(it=c.it + 1, **new)
 
     if carry_in is None:
         c = make_carry_init(cfg, dtype, obs_vals, H0, error0)
@@ -613,17 +623,15 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
     # iteration, the first included, for each pair.
     go = c.go
     while go and c.it < hi:
-        c = body(c, active)
-        if c.it < T:
-            stopped = c.converged | (c.error != ERR_OK)
-            if active is not None:
-                active = ~stopped
-                stopped = stopped.all()
-            go = not read_flag(stopped)
-    c = c._replace(go=go)
-    if gather_fn is None:
-        return c, None, None
-    return (c, *_uncertainties(c, Q, normals, obs_vals, obs_w, gather_fn))
+        with span("icp.iteration"):
+            c = body(c, active)
+            if c.it < T:
+                stopped = c.converged | (c.error != ERR_OK)
+                if active is not None:
+                    active = ~stopped
+                    stopped = stopped.all()
+                go = not read_flag(stopped)
+    return c._replace(go=go)
 
 
 def _uncertainties(c: _Carry, Q, normals, obs_vals, obs_w, gather_fn):
@@ -1549,13 +1557,14 @@ def icp_register(
     Returns:
         IcpResult of tensors on ``device``. Check ``.error_code``.
     """
-    return _icp_register(
-        X_fix, X_mov, cfg, rbp_observed_values=rbp_observed_values,
-        rbp_observation_weights=rbp_observation_weights,
-        normals_fix=normals_fix, planarity_fix=planarity_fix,
-        planarity_mov=planarity_mov, fixed_prep=fixed_prep, device=device,
-        dtype=dtype,
-    )[0]
+    with span("icp.register"):
+        return _icp_register(
+            X_fix, X_mov, cfg, rbp_observed_values=rbp_observed_values,
+            rbp_observation_weights=rbp_observation_weights,
+            normals_fix=normals_fix, planarity_fix=planarity_fix,
+            planarity_mov=planarity_mov, fixed_prep=fixed_prep, device=device,
+            dtype=dtype,
+        )[0]
 
 
 def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
@@ -1565,60 +1574,62 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
     ``m_idx`` holds the last iteration's matches). ``plan`` (a
     ``DispatchPlan``) replaces the planner's, as a test forces a split
     prologue."""
-    dev, dtype = resolve(device, dtype)
-    # A movable cloud that came as numpy has the grid engines count their
-    # cell caps on the host, as in the JAX package; a tensor, on its device.
-    mov_host = X_mov if isinstance(X_mov, np.ndarray) else None
-    Xf = _as_tensor(X_fix, dtype, dev)
-    Xm = _as_tensor(X_mov, dtype, dev)
-    if Xf.dim() != 2 or Xf.shape[1] != 3 or Xm.dim() != 2 or Xm.shape[1] != 3:
-        raise ValueError("point clouds must have shape (n, 3)")
-    _check_round_linspace_domain(cfg.correspondences, Xf.shape[0])
-    if fixed_prep is not None:
-        _validate_fixed_prep(fixed_prep, Xf.shape[0], cfg, dtype, dev,
-                             normals_fix, "icp_register")
+    with span("icp.plan"):
+        dev, dtype = resolve(device, dtype)
+        # A movable cloud that came as numpy has the grid engines count their
+        # cell caps on the host, as in the JAX package; a tensor, on its device.
+        mov_host = X_mov if isinstance(X_mov, np.ndarray) else None
+        Xf = _as_tensor(X_fix, dtype, dev)
+        Xm = _as_tensor(X_mov, dtype, dev)
+        if Xf.dim() != 2 or Xf.shape[1] != 3 or Xm.dim() != 2 or Xm.shape[1] != 3:
+            raise ValueError("point clouds must have shape (n, 3)")
+        _check_round_linspace_domain(cfg.correspondences, Xf.shape[0])
+        if fixed_prep is not None:
+            _validate_fixed_prep(fixed_prep, Xf.shape[0], cfg, dtype, dev,
+                                 normals_fix, "icp_register")
 
-    if normals_fix is not None:
-        normals_fix, planarity_fix = _user_normals(normals_fix, planarity_fix,
-                                                   Xf.shape[0], dtype, dev)
-    if planarity_mov is not None:
-        planarity_mov = _as_tensor(planarity_mov, dtype, dev)
-    # The coarse pass of a warm start sets its own matcher and gate, so it
-    # runs as from the unresolved config.
-    cfg = _resolve_engines(cfg, Xf.shape[0], Xm.shape[0])
-    warm_requested = cfg.warm_start
-    if cfg.warm_start:
-        cfg, rbp_observed_values = plan_warm_start(
-            Xf, Xm, cfg, rbp_observed_values=rbp_observed_values,
-            rbp_observation_weights=rbp_observation_weights,
-            normals_fix=normals_fix, planarity_fix=planarity_fix,
-            planarity_mov=planarity_mov, device=dev, dtype=dtype,
-        )
+        if normals_fix is not None:
+            normals_fix, planarity_fix = _user_normals(normals_fix, planarity_fix,
+                                                       Xf.shape[0], dtype, dev)
+        if planarity_mov is not None:
+            planarity_mov = _as_tensor(planarity_mov, dtype, dev)
+        # The coarse pass of a warm start sets its own matcher and gate, so it
+        # runs as from the unresolved config.
+        cfg = _resolve_engines(cfg, Xf.shape[0], Xm.shape[0])
+        warm_requested = cfg.warm_start
+        if cfg.warm_start:
+            cfg, rbp_observed_values = plan_warm_start(
+                Xf, Xm, cfg, rbp_observed_values=rbp_observed_values,
+                rbp_observation_weights=rbp_observation_weights,
+                normals_fix=normals_fix, planarity_fix=planarity_fix,
+                planarity_mov=planarity_mov, device=dev, dtype=dtype,
+            )
 
-    zeros6 = torch.zeros(6, dtype=dtype, device=dev)
-    obs_vals = (zeros6 if rbp_observed_values is None
-                else _as_tensor(rbp_observed_values, dtype, dev))
-    obs_w = (zeros6 if rbp_observation_weights is None
-             else _as_tensor(rbp_observation_weights, dtype, dev))
+        zeros6 = torch.zeros(6, dtype=dtype, device=dev)
+        obs_vals = (zeros6 if rbp_observed_values is None
+                    else _as_tensor(rbp_observed_values, dtype, dev))
+        obs_w = (zeros6 if rbp_observation_weights is None
+                 else _as_tensor(rbp_observation_weights, dtype, dev))
 
-    H0 = rbp_to_H(obs_vals)
-    nf, nm = Xf.shape[0], Xm.shape[0]
-    has_normals = normals_fix is not None or fixed_prep is not None
-    # The grid matcher's cell list is built once, before the planner
-    # prices an iteration with its cap; every iteration and chunk queries it.
-    match_grid = _match_grid(Xm, cfg, mov_host) if cfg.match_method == "grid" else None
-    plan_cfg = (cfg if match_grid is None
-                else dataclasses.replace(cfg, match_cell_cap=match_grid[1]))
-    if plan is None:
-        plan = _plan_dispatch(
-            plan_cfg, nf, nm, guarded=cfg.program_budget_s > 0 and dev.type == "cuda",
-            has_normals=has_normals,
-            gate_pairs=(float(nf) * nm if cfg.overlap_enabled and cfg.gate_method == "brute"
-                        else 0.0),
-            warm_requested=warm_requested,
-            obs=(rbp_observed_values, rbp_observation_weights),
-        )
-    chunked = plan.dispatch == "chunked"
+        H0 = rbp_to_H(obs_vals)
+        nf, nm = Xf.shape[0], Xm.shape[0]
+        has_normals = normals_fix is not None or fixed_prep is not None
+        # The grid matcher's cell list is built once, before the planner
+        # prices an iteration with its cap; every iteration and chunk queries it.
+        match_grid = _match_grid(Xm, cfg, mov_host) if cfg.match_method == "grid" else None
+        plan_cfg = (cfg if match_grid is None
+                    else dataclasses.replace(cfg, match_cell_cap=match_grid[1]))
+        if plan is None:
+            plan = _plan_dispatch(
+                plan_cfg, nf, nm, guarded=cfg.program_budget_s > 0 and dev.type == "cuda",
+                has_normals=has_normals,
+                gate_pairs=(float(nf) * nm
+                            if cfg.overlap_enabled and cfg.gate_method == "brute" else 0.0),
+                warm_requested=warm_requested,
+                obs=(rbp_observed_values, rbp_observation_weights),
+            )
+        chunked = plan.dispatch == "chunked"
+        per_iter_est = _chunk_per_iter_estimate(plan_cfg, nf, nm, has_normals, dev)
     # The gate sees the pair itself; the stages after it and the loop are
     # the batch's, on a batch of one.
     Xf1, Xm1 = Xf[None], Xm[None]
@@ -1627,44 +1638,47 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
         sel_idx, sel_valid, error0 = (
             x[None] for x in _gate_select_stages(Xf, Xm, H0, cfg=cfg, mov_host=mov_host,
                                                  obs_host=rbp_observed_values))
-        Q = _rows(Xf1, sel_idx)
-        if chunked and _log.isEnabledFor(logging.DEBUG):
-            _synced(Q)
-            _log.debug("timing: chunked prologue gate/select %.2f s",
-                       time.perf_counter() - t0)
-        if normals_fix is not None:
-            normals, planarity = _normals_stage(Q, Xf1, sel_idx, normals_fix[None],
-                                                planarity_fix[None], cfg=cfg)
-        else:
-            normals, planarity = _knn_normals(Q, Xf, cfg, plan.knn_block, plan.knn_grid)
+        with span("icp.normals"):
+            Q = _rows(Xf1, sel_idx)
+            if chunked and _log.isEnabledFor(logging.DEBUG):
+                _synced(Q)
+                _log.debug("timing: chunked prologue gate/select %.2f s",
+                           time.perf_counter() - t0)
+            if normals_fix is not None:
+                normals, planarity = _normals_stage(Q, Xf1, sel_idx, normals_fix[None],
+                                                    planarity_fix[None], cfg=cfg)
+            else:
+                normals, planarity = _knn_normals(Q, Xf, cfg, plan.knn_block, plan.knn_grid)
     else:
-        Q, normals, planarity, sel_idx, sel_valid = (t[None] for t in fixed_prep[:5])
-        error0 = np.full(1, ERR_OK, np.int32)
+        with span("icp.normals"):
+            Q, normals, planarity, sel_idx, sel_valid = (t[None] for t in fixed_prep[:5])
+            error0 = np.full(1, ERR_OK, np.int32)
 
-    mov_planarity_fn = None
-    if planarity_mov is not None:
-        def mov_planarity_fn(m_idx):
-            return _rows(planarity_mov[None], m_idx)
+    with span("icp.loop"):
+        mov_planarity_fn = None
+        if planarity_mov is not None:
+            def mov_planarity_fn(m_idx):
+                return _rows(planarity_mov[None], m_idx)
 
-    loop_args = (Q, normals, planarity, sel_valid, obs_vals[None], obs_w[None], cfg,
-                 dtype, error0, H0[None], _make_match_fn(Q, Xm1, cfg, grid=match_grid), None)
-    # A monolithic run is one chunk of max_iterations: the same loop, reads
-    # and launches, and no stall check (the first chunk is never checked).
-    final = _run_chunked(
-        make_carry_init(cfg, dtype, obs_vals[None], H0[None], error0),
-        plan.chunk_iterations if chunked else cfg.max_iterations,
-        lambda c, hi: run_icp_loop(*loop_args, mov_planarity_fn=mov_planarity_fn,
-                                   carry_in=c, it_hi=hi)[0],
-        cfg=cfg,
-        per_iter_est=_chunk_per_iter_estimate(plan_cfg, nf, nm, has_normals, dev),
-    )
-    uncertainties, covariance = _uncertainties(
-        final, Q, normals, obs_vals[None], obs_w[None], lambda m_idx: _rows(Xm1, m_idx))
-    result = _result_from_carry(
-        final, uncertainties, covariance, sel_idx, sel_valid, normals,
-        planarity,
-    )
-    return _first(result), _first(final)
+        loop_args = (Q, normals, planarity, sel_valid, obs_vals[None], obs_w[None], cfg,
+                     dtype, error0, H0[None], _make_match_fn(Q, Xm1, cfg, grid=match_grid))
+        # A monolithic run is one chunk of max_iterations: the same loop, reads
+        # and launches, and no stall check (the first chunk is never checked).
+        final = _run_chunked(
+            make_carry_init(cfg, dtype, obs_vals[None], H0[None], error0),
+            plan.chunk_iterations if chunked else cfg.max_iterations,
+            lambda c, hi: run_icp_loop(*loop_args, mov_planarity_fn=mov_planarity_fn,
+                                       carry_in=c, it_hi=hi),
+            cfg=cfg, per_iter_est=per_iter_est,
+        )
+    with span("icp.finish"):
+        uncertainties, covariance = _uncertainties(
+            final, Q, normals, obs_vals[None], obs_w[None], lambda m_idx: _rows(Xm1, m_idx))
+        result = _result_from_carry(
+            final, uncertainties, covariance, sel_idx, sel_valid, normals,
+            planarity,
+        )
+        return _first(result), _first(final)
 
 
 def icp_register_batch(
@@ -1713,43 +1727,48 @@ def icp_register_batch(
         IcpResult with a leading batch axis on every field: n_iterations,
         converged and error_code (B,), the trajectory buffers (B, R, C).
     """
-    if cfg.overlap_enabled and cfg.gate_method in ("grid", "dilate"):
-        raise ValueError(
-            f"gate_method={cfg.gate_method!r} is not supported in batch mode"
-        )
-    if cfg.match_method == "auto":
-        # batch pairs are serving-sized; the grid matcher is per-cloud
-        # static, so auto always resolves to brute here
-        cfg = dataclasses.replace(cfg, match_method="brute")
-    if cfg.match_method != "brute":
-        raise ValueError(
-            "match_method='grid' is not supported in batch mode (its cell "
-            "cap is per-cloud static)"
-        )
-    dev, dtype = resolve(device, dtype)
-    Xf = _as_tensor(X_fix, dtype, dev)
-    Xm = _as_tensor(X_mov, dtype, dev)
-    if Xf.dim() != 3 or Xf.shape[2] != 3 or Xm.dim() != 3 or Xm.shape[2] != 3:
-        raise ValueError("batched clouds must have shape (B, n, 3)")
-    if Xf.shape[0] != Xm.shape[0]:
-        raise ValueError("batch sizes of fixed and movable clouds differ")
-    _check_round_linspace_domain(cfg.correspondences, Xf.shape[1])
-    B = Xf.shape[0]
-    if cfg.overlap_enabled and cfg.gate_method == "auto":
-        cfg = dataclasses.replace(cfg, gate_method="brute")
+    with span("icp.register"):
+        with span("icp.plan"):
+            if cfg.overlap_enabled and cfg.gate_method in ("grid", "dilate"):
+                raise ValueError(
+                    f"gate_method={cfg.gate_method!r} is not supported in batch mode"
+                )
+            if cfg.match_method == "auto":
+                # batch pairs are serving-sized; the grid matcher is per-cloud
+                # static, so auto always resolves to brute here
+                cfg = dataclasses.replace(cfg, match_method="brute")
+            if cfg.match_method != "brute":
+                raise ValueError(
+                    "match_method='grid' is not supported in batch mode (its cell "
+                    "cap is per-cloud static)"
+                )
+            dev, dtype = resolve(device, dtype)
+            Xf = _as_tensor(X_fix, dtype, dev)
+            Xm = _as_tensor(X_mov, dtype, dev)
+            if Xf.dim() != 3 or Xf.shape[2] != 3 or Xm.dim() != 3 or Xm.shape[2] != 3:
+                raise ValueError("batched clouds must have shape (B, n, 3)")
+            if Xf.shape[0] != Xm.shape[0]:
+                raise ValueError("batch sizes of fixed and movable clouds differ")
+            _check_round_linspace_domain(cfg.correspondences, Xf.shape[1])
+            B = Xf.shape[0]
+            if cfg.overlap_enabled and cfg.gate_method == "auto":
+                cfg = dataclasses.replace(cfg, gate_method="brute")
 
-    zeros = torch.zeros((B, 6), dtype=dtype, device=dev)
-    obs_vals = (zeros if rbp_observed_values is None
-                else _as_tensor(rbp_observed_values, dtype, dev))
-    obs_w = (zeros if rbp_observation_weights is None
-             else _as_tensor(rbp_observation_weights, dtype, dev))
-    H0 = rbp_to_H(obs_vals)
-    sel_idx, sel_valid, error0 = _gate_select_stages(Xf, Xm, H0, cfg=cfg)
-    Q = _rows(Xf, sel_idx)
-    normals, planarity = _normals_stage(Q, Xf, sel_idx, None, None, cfg=cfg)
-    final, uncertainties, covariance = run_icp_loop(
-        Q, normals, planarity, sel_valid, obs_vals, obs_w, cfg, dtype,
-        error0, H0, _make_match_fn(Q, Xm, cfg), lambda m_idx: _rows(Xm, m_idx),
-    )
-    return _result_from_carry(final, uncertainties, covariance, sel_idx,
-                              sel_valid, normals, planarity)
+            zeros = torch.zeros((B, 6), dtype=dtype, device=dev)
+            obs_vals = (zeros if rbp_observed_values is None
+                        else _as_tensor(rbp_observed_values, dtype, dev))
+            obs_w = (zeros if rbp_observation_weights is None
+                     else _as_tensor(rbp_observation_weights, dtype, dev))
+            H0 = rbp_to_H(obs_vals)
+        sel_idx, sel_valid, error0 = _gate_select_stages(Xf, Xm, H0, cfg=cfg)
+        with span("icp.normals"):
+            Q = _rows(Xf, sel_idx)
+            normals, planarity = _normals_stage(Q, Xf, sel_idx, None, None, cfg=cfg)
+        with span("icp.loop"):
+            final = run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w, cfg,
+                                 dtype, error0, H0, _make_match_fn(Q, Xm, cfg))
+        with span("icp.finish"):
+            uncertainties, covariance = _uncertainties(
+                final, Q, normals, obs_vals, obs_w, lambda m_idx: _rows(Xm, m_idx))
+            return _result_from_carry(final, uncertainties, covariance, sel_idx,
+                                      sel_valid, normals, planarity)

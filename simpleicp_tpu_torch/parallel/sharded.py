@@ -748,7 +748,7 @@ def _icp_register_sharded(X_fix, X_mov, cfg: IcpConfig, *, mesh, rbp_observed_va
 
     match_fn, gather_fn = _match_fns(comm, cfg, Q, Xm_l, lo_m, match_grid)
     loop_args = (Q, normals, planarity, sel_valid, obs_vals[None], obs_w[None], cfg,
-                 dtype, error0, H0[None], match_fn, None)
+                 dtype, error0, H0[None], match_fn)
     # A monolithic run is one chunk of max_iterations. Every rank reads the
     # same replicated stop flag at the same iteration.
     comm.stage = "loop"
@@ -756,7 +756,7 @@ def _icp_register_sharded(X_fix, X_mov, cfg: IcpConfig, *, mesh, rbp_observed_va
         make_carry_init(cfg, dtype, obs_vals[None], H0[None], error0),
         chunk_k if dispatch == "chunked" else cfg.max_iterations,
         lambda c, hi: run_icp_loop(*loop_args, mov_planarity_fn=mov_planarity_fn,
-                                   carry_in=c, it_hi=hi)[0],
+                                   carry_in=c, it_hi=hi),
         cfg=cfg, per_iter_est=0.0,
     )
     comm.stage = "uncertainty"

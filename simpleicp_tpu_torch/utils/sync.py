@@ -5,12 +5,15 @@ back to the host per step to decide whether to go on, and the overlap gate
 reads back how many fixed points survive it (the dilate gate also its
 grid's bounding box and its band). Every such read goes through
 ``read_flag``, ``read_nonzero`` or ``read_array``, so a run can report how
-many it made.
+many it made; under a recording profiler each is an ``icp.host_read`` span,
+the time the host sat blocked on the device.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .profiling import span
 
 _reads = 0
 
@@ -19,7 +22,8 @@ def read_flag(flag: torch.Tensor) -> bool:
     """bool(flag), counted (on a CUDA tensor this waits for the device)."""
     global _reads
     _reads += 1
-    return bool(flag)
+    with span("icp.host_read"):
+        return bool(flag)
 
 
 def read_nonzero(mask: torch.Tensor) -> torch.Tensor:
@@ -28,7 +32,8 @@ def read_nonzero(mask: torch.Tensor) -> torch.Tensor:
     the device)."""
     global _reads
     _reads += 1
-    return torch.nonzero(mask)[:, 0]
+    with span("icp.host_read"):
+        return torch.nonzero(mask)[:, 0]
 
 
 def read_array(t: torch.Tensor):
@@ -36,7 +41,8 @@ def read_array(t: torch.Tensor):
     waits for the device)."""
     global _reads
     _reads += 1
-    return t.cpu().numpy()
+    with span("icp.host_read"):
+        return t.cpu().numpy()
 
 
 def host_reads() -> int:

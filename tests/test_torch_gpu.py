@@ -1063,3 +1063,37 @@ def test_profiling_trace_names_the_kernels(cuda, tmp_path):
              if e.get("cat") == "kernel"}
     for symbol in ("match_scan", "knn_scan"):
         assert any(symbol in n for n in names), (symbol, sorted(names)[:20])
+
+
+def test_spans_are_host_operations_of_the_profile(cuda):
+    """Under the profiler on the card the registration's spans are host
+    operations that hold the runtime's launch calls, and no span has a
+    device-side event: the device's events are the kernels, copies and
+    fills alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simpleicp_tpu_torch import IcpConfig, icp_register
+    from simpleicp_tpu_torch.utils.profiling import SPANS
+
+    rng = np.random.default_rng(13)
+    xy = rng.uniform(-2, 2, (20000, 2))
+    X = np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+    cfg = IcpConfig(correspondences=500, max_iterations=10, max_overlap_distance=0.5)
+    icp_register(X, X + [0.02, -0.01, 0.01], cfg)  # build and warm up outside the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = icp_register(X, X + [0.02, -0.01, 0.01], cfg)
+        torch.cuda.synchronize()
+    assert int(res.error_code) == 0
+    events = list(prof.events())
+    on_card = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert on_card and not [n for n in on_card if n.startswith("icp.")]
+    spans = [e for e in events if e.name in SPANS]
+    assert {e.name for e in spans} >= {"icp.register", "icp.gate", "icp.solve",
+                                        "icp.host_read"}
+    (reg,) = [e for e in spans if e.name == "icp.register"]
+    launches = [e for e in events if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                                "cuLaunchKernel")]
+    inside = [e for e in launches if reg.time_range.start <= e.time_range.start
+              <= reg.time_range.end]
+    assert launches and len(inside) == len(launches)
