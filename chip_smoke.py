@@ -17,10 +17,10 @@ Phases, each printing one JSON object on a line of its own:
            the dilation up to the largest reach it takes (18). Tolerance:
            none, indices equal and d2 bit-equal;
   main     icp_register at 100 000 x 100 000 (default config): float32 on the
-           card recovers the known motion; at 50 000 x 50 000 float64 on the
-           card equals float64 on the CPU (plain versions) in iterations,
-           selection, last matches and H (1e-9); the launch counts prove
-           both kernels ran;
+           card recovers the known motion; at 100 000 x 100 000 float64 on
+           the card equals float64 on the CPU (plain versions) in
+           iterations, selection, last matches and H (1e-9); the launch
+           counts prove the match, the k-NN and the solve kernels ran;
   scale    icp_register at 1 340 000 x 1 340 000, float32, on the card; the
            match and k-NN kernels bit-equal to their plain versions on that
            run's selection and final H;
@@ -95,9 +95,9 @@ Phases, each printing one JSON object on a line of its own:
            simpleicp-tpu-torch console script, started from outside the
            checkout with no checkout on its path, on the cli phase's dilate
            1.2M pair: it imports the installed package, builds libknn,
-           libdilate and libnative from the installed sources into the
-           installed package's empty _build/, launches all four kernels,
-           and exports a file byte-equal to the checkout CLI's; the wheel
+           libdilate, libsolver and libnative from the installed sources
+           into the installed package's empty _build/, launches all five
+           kernels, and exports a file byte-equal to the checkout CLI's; the wheel
            build, install, wall, build and timing-line seconds;
   serve    the serving path, float32 on the card: prepare_fixed once on a
            1.34M fixed cloud and 4 movable clouds (each under its own rigid
@@ -201,11 +201,13 @@ REPLACES = {
 # brute 1-NN; the float64 card-versus-CPU check of the gate at 20k (a CPU
 # brute gate at 100k takes minutes).
 N_MAIN = 100_000
-# The float64 card-versus-CPU check of the main path runs 100 iterations of
-# plain float64 on the host (float64 does not meet the relative criterion
-# on independent samples): 50 000 points, at the same density, keep it
-# near 90 s.
-N_MAIN_F64 = 50_000
+# The float64 card-versus-CPU check of the main path, at the main path's
+# size. Float64 does not meet the relative criterion on these independent
+# samples, so both runs take 100 iterations: ~200 s of plain float64 on the
+# host of an H100 80GB HBM3 machine, and the whole script ~680 s of its
+# 1200 s limit with it (the card's runs take a solve kernel launch an
+# iteration, not ~1 500 launches).
+N_MAIN_F64 = 100_000
 N_SCALE = 1_340_000
 N_GATE_BIG = 1_000_000
 N_GATE_F64 = 20_000
@@ -433,11 +435,15 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {name: ptxas_table(_build.BUILD_LOGS.get(name, "")) for name in paths}
     # every nearest-neighbour kernel keeps its lists and queries in
-    # registers: no stack frame, no spills
-    bad = {f: v for f, v in ptxas.get("knn", {}).items()
-           if v.get("stack", 0) or v.get("spill_stores", 0) or v.get("spill_loads", 0)}
-    check(bool(ptxas.get("knn")), "no -Xptxas -v lines for knn.cu")
-    check(not bad, f"knn.cu kernels with a stack frame or spills: {bad}")
+    # registers: no stack frame, no spills; the Gauss-Newton kernel keeps
+    # its running sums and its 6 x 6 system in registers: no spills (its
+    # 40-byte stack frame is float64 sin/cos's argument reduction for huge
+    # angles, which CUDA's math library keeps in local memory)
+    for lib, keys in (("knn", ("stack", "spill_stores", "spill_loads")),
+                      ("solver", ("spill_stores", "spill_loads"))):
+        bad = {f: v for f, v in ptxas.get(lib, {}).items() if any(v.get(k, 0) for k in keys)}
+        check(bool(ptxas.get(lib)), f"no -Xptxas -v lines for {lib}.cu")
+        check(not bad, f"{lib}.cu kernels with {' or '.join(keys)}: {bad}")
     emit({"phase": "build", "seconds": seconds, "sources": sorted(paths),
           "ptxas": ptxas, "sass_hot_loops": sass_hot_loops(paths["knn"])})
 
@@ -741,10 +747,11 @@ def _register(torch, X_fix, X_mov, dtype, device, gate=None, method="auto"):
 
 
 def reset_counts():
-    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
+    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda, solver_cuda
 
     knn_cuda.reset_launch_counts()
     dilate_cuda.reset_launch_counts()
+    solver_cuda.reset_launch_counts()
 
 
 def read_counts():
@@ -803,13 +810,17 @@ def traced(torch, fn):
 
 def counted_run(torch, X_fix, X_mov, dtype, gate=None, gate_launches=None):
     """One registration on the card with every count set to 0 just before
-    and read just after: one k-NN launch, one match launch per iteration,
-    and the gate's launches (``gate_launches``; by default one 1-NN launch
-    in the d2-only mode when gated, none otherwise; never the index
-    mode)."""
+    and read just after: one k-NN launch, one match launch and one
+    Gauss-Newton solve launch per iteration, and the gate's launches
+    (``gate_launches``; by default one 1-NN launch in the d2-only mode when
+    gated, none otherwise; never the index mode)."""
+    from simpleicp_tpu_torch.ops import solver_cuda
+
     (res, carry), seconds, launches, reads = timed(
         torch, lambda: _register(torch, X_fix, X_mov, dtype, "cuda", gate))
     n_it = int(res.n_iterations)
+    check(solver_cuda.LAUNCHES["gn_solve"] == n_it,
+          f"solve kernel launches {solver_cuda.LAUNCHES['gn_solve']}, expected {n_it}")
     if gate_launches is None:
         gate_launches = {"nn_search": 0, "nn_search_d2": 0 if gate is None else 1,
                          "dilate": 0}
@@ -2108,8 +2119,8 @@ def h_rows(log):
 def phase_install(torch, d, run=None):
     """The installed program on the card: the console script, started from
     a directory outside the checkout with no checkout on its path, builds
-    its three libraries from the installed sources into the installed
-    package and registers the dilate 1.2M pair (all four kernels), its
+    its four libraries from the installed sources into the installed
+    package and registers the dilate 1.2M pair (all five kernels), its
     export byte-equal to the checkout CLI's (``run``, cli_dilate_run's
     result, made here into ``d`` when the cli phase did not run)."""
     t_phase = time.perf_counter()
@@ -2135,7 +2146,7 @@ def phase_install(torch, d, run=None):
         finished = check_cli_run(rc, log, what)
         check_installed(report, sp, what)
         built = {lib: sorted(p.name for p in build_dir.glob(f"lib{lib}-*.so"))
-                 for lib in ("knn", "dilate", "native")}
+                 for lib in ("knn", "dilate", "solver", "native")}
         check(all(len(v) == 1 for v in built.values()), f"{what}: built {built}")
         check(set(report["build_s"]) == set(built),
               f"{what}: libraries built in its process {report['build_s']}")
@@ -3202,6 +3213,86 @@ def slab_rates(torch):
     return {"call_s": call_s, "host_sort_s_per_element": sort_s}
 
 
+# The solve kernel's operations a correspondence a Gauss-Newton step
+# (csrc/solver.cu): the transform and residual 26, the Jacobian's three
+# rotated columns 60, the weights 7, the 21 + 6 products and sums of the
+# normal equations 54: ~150 float64 operations.
+GN_OPS_PER_ROW = 150
+
+
+def gn_inputs(torch, B, C, dtype, seed):
+    """gn_solve's tensors on the card for B problems of C correspondences
+    (as the ICP loop passes them: one iteration's matches on the wavy
+    surface, its analytic normals, the movable side moved back by each
+    problem's motion from the seed and noisy, 5 % rejected), p0 = 0, no
+    observations; and the active mask (None for one problem)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-2, 2, (B, C, 2))
+    xf = np.concatenate([xy, (0.3 * np.sin(2 * xy[..., 0])
+                              + 0.2 * np.cos(3 * xy[..., 1]))[..., None]], -1)
+    g = np.stack([-0.6 * np.cos(2 * xy[..., 0]), 0.6 * np.sin(3 * xy[..., 1]),
+                  np.ones((B, C))], -1)
+    n = g / np.linalg.norm(g, axis=-1, keepdims=True)
+    motion = rng.uniform([-0.03] * 3 + [-0.05] * 3, [0.03] * 3 + [0.05] * 3, (B, 6))
+    R = np.stack([rotation(m[:3]) for m in motion])
+    xm = np.einsum("bcj,bji->bci", xf - motion[:, None, 3:], R)
+    xm = xm + rng.normal(0, 1e-3, xm.shape)
+    dev = torch.device("cuda")
+    t = [torch.as_tensor(a, dtype=dtype, device=dev) for a in
+         (np.zeros((B, 6)), xm, xf, n)]
+    t += [torch.as_tensor(rng.random((B, C)) > 0.05, device=dev),
+          torch.ones(B, dtype=dtype, device=dev), torch.zeros((B, 6), dtype=dtype, device=dev),
+          torch.zeros((B, 6), dtype=dtype, device=dev)]
+    return t, (None if B == 1 else torch.ones(B, dtype=torch.bool, device=dev))
+
+
+def solver_times(torch):
+    """The Gauss-Newton solve kernel (csrc/solver.cu) beside its plain
+    version on the card, at the main path's C = 1000, one problem and a
+    batch of 32, float32 and float64 coordinates (CUDA events, warm): the
+    kernel in a host loop of calls and as CUDA-graph replays (its device
+    time), the plain loop; the Gauss-Newton steps (the plain version's
+    flag reads), the operation bound (GN_OPS_PER_ROW a correspondence a
+    step over 34 TFLOP/s float64), the largest gap between the two
+    versions' p and residuals; and the kernel's -Xptxas -v registers,
+    stack and spills. Two launches on the same inputs are bit-equal."""
+    from simpleicp_tpu_torch import _build
+    from simpleicp_tpu_torch.models import solver
+    from simpleicp_tpu_torch.utils import sync
+
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).replace("torch.", "")
+        for B in (1, 32):
+            t, act = gn_inputs(torch, B, 1000, dtype, SEED + B)
+            k = solver.gn_solve(*t, active=act)
+            again = solver.gn_solve(*t, active=act)
+            sync.reset_host_reads()
+            plain = solver.gn_solve_plain(*t, active=act)
+            steps = sync.host_reads()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(k, again)),
+                  f"gn_solve kernel {tag} B={B}: two launches differ")
+            gap = [float((a.double() - b.double()).abs().max()) for a, b in zip(k[:2], plain[:2])]
+            check(gap[0] <= (1e-12 if tag == "float64" else 1e-6),
+                  f"gn_solve kernel {tag} B={B}: p differs from plain by {gap[0]}")
+            rows[f"{tag} {B} x 1000"] = {
+                "ms": graph_ms(torch, lambda: solver.gn_solve(*t, active=act), 20),
+                "host_loop_ms": cuda_ms(torch, lambda: solver.gn_solve(*t, active=act), 100),
+                "plain_ms": cuda_ms(torch, lambda: solver.gn_solve_plain(*t, active=act), 5),
+                "steps": steps,
+                "bound_ms": 1e3 * GN_OPS_PER_ROW * B * 1000 * max(steps, 1) / 34e12,
+                "bound_by": "operations (the kernel is latency-bound)",
+                "max_abs_gap_p_residuals": gap,
+            }
+    return {"kernel": "gn_solve", "route": "cuda", "source": "simpleicp_tpu_torch/csrc/solver.cu",
+            "replaces": "no Pallas kernel: the JAX package's fused lax.while_loop "
+                        "(simpleicp_tpu/models/solver.py gn_solve)",
+            "ptxas": ptxas_table(_build.BUILD_LOGS.get("solver", "")), "shapes": rows}
+
+
 def phase_times(torch, scale, gated_big, cells, dil=None):
     import numpy as np
 
@@ -3262,6 +3353,8 @@ def phase_times(torch, scale, gated_big, cells, dil=None):
     emit({"phase": "times", "what": f"kernels at 1000 x {N_MAIN} (k=10; by_k: k=32, 64), "
           f"the gate at {N_MAIN} x {N_MAIN} (the 1-NN: ms is the d2-only mode, index_ms the "
           "index mode); warm L2", "kernels": kernels})
+    emit({"phase": "times", "what": "the Gauss-Newton solve kernel against its plain "
+          "version (B problems x C=1000, warm)", **solver_times(torch)})
     emit({"phase": "times", "what": "the k-NN and the match at more shapes (float32, k=10, "
           "warm L2): the scale cell's own selection, estimate_normals' all-points shape, "
           "the k-NN under other chunk counts",
@@ -3361,8 +3454,9 @@ KERNEL_NAMES = {"match_scan": "match_transform", "match_finish": "match_transfor
 
 
 # Device launches (kernels, copies, fills) of one float32 registration of
-# the 100k cell before the loop took a pair axis (H100 80GB HBM3, 700 W).
-LAUNCHES_100K = 7303
+# the 100k cell (4 iterations), the Gauss-Newton loop one kernel launch an
+# iteration (H100 80GB HBM3, 700 W).
+LAUNCHES_100K = 1611
 
 
 def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
@@ -3404,8 +3498,8 @@ def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
         check(busy_ms > 0, f"profile {label}: no device time was traced")
         if label == "100k":
             # one registration runs the batch's loop on a batch of one, with
-            # no per-pair freezes: its launches stay those of the loop before
-            # the pair axis, within 2 %
+            # no per-pair freezes and one solve launch an iteration: its
+            # launches stay LAUNCHES_100K, within 2 %
             check(abs(len(kernels) - LAUNCHES_100K) <= 0.02 * LAUNCHES_100K,
                   f"profile 100k: {len(kernels)} launches, not within 2 % of "
                   f"{LAUNCHES_100K}")

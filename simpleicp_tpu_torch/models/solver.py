@@ -4,7 +4,8 @@
   absolute parameters with the exact Euler rotation: masked J^T W J / J^T W r
   6x6 normal equations, weighted parameter observations, inf-weight (frozen)
   parameter elimination, and an exit once the relative step falls below
-  64*eps(float64).
+  64*eps(float64). On the card one kernel launch (``ops/solver_cuda.py``);
+  ``gn_solve_plain`` is its plain version and the CPU path.
 * ``linearized_solve`` — one small-angle increment solve per iteration.
 * ``estimate_uncertainties`` — a-posteriori sigmas and covariance.
 * ``Parameter`` / ``RigidBodyParameters`` — the host-side (numpy) parameter
@@ -26,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..ops import solver_cuda
 from ..ops.transform import (
     apply_H,
     euler_angles_to_linearized_rotation_matrix,
@@ -167,7 +169,35 @@ def gn_solve(p0: torch.Tensor, xm: torch.Tensor, xf: torch.Tensor, n: torch.Tens
              mask: torch.Tensor, distance_weight: torch.Tensor,
              obs_vals: torch.Tensor, obs_w: torch.Tensor, *, n_steps: int = 24,
              active: Optional[torch.Tensor] = None):
-    """Gauss-Newton estimate of the six absolute rigid-body parameters.
+    """Gauss-Newton estimate of the six absolute rigid-body parameters:
+    on a CUDA tensor one launch of the kernel in ``csrc/solver.cu`` (the
+    whole inner loop on the card, no host read), elsewhere
+    ``gn_solve_plain``. Arguments and results as ``gn_solve_plain``'s; on
+    the card every tensor but the masks is in xm's dtype, and a problem
+    stops on its own whether or not ``active`` is given. The kernel sums
+    the normal equations in another order than the plain version's
+    products, so the two agree to rounding, not bit for bit."""
+    if not xm.is_cuda:
+        return gn_solve_plain(p0, xm, xf, n, mask, distance_weight, obs_vals, obs_w,
+                              n_steps=n_steps, active=active)
+    lead, C = xm.shape[:-2], xm.shape[-2]
+
+    def rows(t, tail=()):
+        return t.reshape(-1, *tail).contiguous()
+
+    p, residuals, rel = solver_cuda.gn_solve_cuda(
+        rows(p0, (6,)), rows(xm, (C, 3)), rows(xf, (C, 3)), rows(n, (C, 3)),
+        rows(mask, (C,)), rows(distance_weight.expand(lead)), rows(obs_vals, (6,)),
+        rows(obs_w, (6,)), n_steps, None if active is None else rows(active))
+    return p.view(*lead, 6), residuals.view(*lead, C), rel.view(lead)
+
+
+def gn_solve_plain(p0: torch.Tensor, xm: torch.Tensor, xf: torch.Tensor, n: torch.Tensor,
+                   mask: torch.Tensor, distance_weight: torch.Tensor,
+                   obs_vals: torch.Tensor, obs_w: torch.Tensor, *, n_steps: int = 24,
+                   active: Optional[torch.Tensor] = None):
+    """Gauss-Newton estimate of the six absolute rigid-body parameters, in
+    plain PyTorch operations (the kernel's plain version; any device).
 
     Args:
         p0: (..., 6) warm-start parameters (previous ICP iteration's

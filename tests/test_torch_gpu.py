@@ -345,7 +345,7 @@ def test_icp_register_on_the_card(cuda):
     noise."""
     from simpleicp_tpu_torch import IcpConfig
     from simpleicp_tpu_torch.models.icp import _icp_register
-    from simpleicp_tpu_torch.ops import knn_cuda
+    from simpleicp_tpu_torch.ops import knn_cuda, solver_cuda
 
     rng = np.random.default_rng(11)
 
@@ -364,9 +364,12 @@ def test_icp_register_on_the_card(cuda):
             dtype=torch.float64)
 
     knn_cuda.reset_launch_counts()
+    solver_cuda.reset_launch_counts()
     g, gc = run(cuda)
     assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations), "knn_search": 1,
                                  "nn_search": 0, "nn_search_d2": 0}
+    # one solve kernel launch per iteration: the Gauss-Newton loop on the card
+    assert solver_cuda.LAUNCHES == {"gn_solve": int(g.n_iterations)}
     c, cc = run("cpu")
     assert int(g.n_iterations) == int(c.n_iterations)
     assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
@@ -769,7 +772,7 @@ def test_icp_register_batch_on_the_card(cuda, gated):
     selection and every iteration's matches, H within 1e-9. Gated, pair 1
     has no overlap (ERR_NO_OVERLAP, no iteration)."""
     from simpleicp_tpu_torch import IcpConfig, icp_register_batch
-    from simpleicp_tpu_torch.ops import knn_cuda
+    from simpleicp_tpu_torch.ops import knn_cuda, solver_cuda
 
     rng = np.random.default_rng(13)
 
@@ -788,10 +791,12 @@ def test_icp_register_batch_on_the_card(cuda, gated):
         return icp_register_batch(X_fix, X_mov, cfg, device=device, dtype=torch.float64)
 
     knn_cuda.reset_launch_counts()
+    solver_cuda.reset_launch_counts()
     g = run(cuda)
     assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations.max()),
                                  "knn_search": 1, "nn_search": 0,
                                  "nn_search_d2": int(gated)}
+    assert solver_cuda.LAUNCHES == {"gn_solve": int(g.n_iterations.max())}
     c = run("cpu")
     for f in ("n_iterations", "error_code", "converged", "sel_idx", "sel_valid", "iter_midx"):
         assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
@@ -1097,3 +1102,146 @@ def test_spans_are_host_operations_of_the_profile(cuda):
     inside = [e for e in launches if reg.time_range.start <= e.time_range.start
               <= reg.time_range.end]
     assert launches and len(inside) == len(launches)
+
+
+# ------------------------------------------------------ Gauss-Newton kernel
+
+GN_TOL = 64 * torch.finfo(torch.float64).eps
+
+
+def _gn_surface(rng, B, C, motion):
+    """(xm, xf, n) of B problems of C correspondences: a wavy surface with
+    its analytic normals, the movable side moved back by each problem's
+    rigid motion (B, 6) and noisy."""
+    from simpleicp_tpu_torch.ops.transform import rbp_to_H
+
+    xy = rng.uniform(-2, 2, (B, C, 2))
+    z = 0.3 * np.sin(2 * xy[..., 0]) + 0.2 * np.cos(3 * xy[..., 1])
+    xf = np.concatenate([xy, z[..., None]], axis=-1)
+    g = np.stack([-0.6 * np.cos(2 * xy[..., 0]), 0.6 * np.sin(3 * xy[..., 1]),
+                  np.ones((B, C))], axis=-1)
+    n = g / np.linalg.norm(g, axis=-1, keepdims=True)
+    H = rbp_to_H(torch.as_tensor(motion)).numpy()
+    xm = np.einsum("bcj,bji->bci", xf - H[:, None, :3, 3], H[:, :3, :3])
+    return xm + rng.normal(0, 1e-3, xm.shape), xf, n
+
+
+def _gn_case(case, rng):
+    """The arguments of gn_solve (numpy, float64) and n_steps, for one case:
+    one problem without a pair axis; 32 problems with an active mask that
+    stops some from the start (the others converge at their own steps);
+    finite and frozen observation weights; a degenerate plane; a solve cut
+    by n_steps; a mask of fewer than 6 rows."""
+    B = {"one": 1, "batch32": 32, "observed": 4, "plane": 1, "n_steps": 2,
+         "few_rows": 2}[case]
+    C = 1000
+    motion = rng.uniform([-0.03] * 3 + [-0.05] * 3, [0.03] * 3 + [0.05] * 3, (B, 6))
+    if case == "n_steps":
+        motion *= 8.0
+    xm, xf, n = _gn_surface(rng, B, C, motion)
+    mask = rng.random((B, C)) > 0.05
+    p0 = np.zeros((B, 6))
+    obs, w = np.zeros((B, 6)), np.zeros((B, 6))
+    dw = rng.uniform(0.5, 2.0, B)
+    # the plain loop reads one flag a step: with more than one problem it
+    # needs the active mask
+    active = None if B == 1 else np.ones(B, dtype=bool)
+    steps = 24
+    if case == "batch32":
+        active = rng.random(B) > 0.25
+        p0[::3] = motion[::3]  # these start at their motion and stop early
+    if case == "observed":
+        obs = motion + rng.normal(0, 0.01, (B, 6))
+        w[:, [0, 3]] = 50.0
+        w[1:, [2, 5]] = np.inf
+        w[3] = np.inf
+    if case == "plane":
+        # a plane z = 0 sampled on a dyadic grid, the movable copy lifted
+        # by 0.25: every product and sum of the solve is exact, the
+        # in-plane motions (alpha3, tx, ty) leave exactly zero columns in
+        # N, and only the damping keeps the Cholesky off 0 / 0
+        g = (np.arange(32) - 15.5) / 8.0  # symmetric: sums of x, y and xy are 0
+        xf = np.stack(np.meshgrid(g, g, [0.0], indexing="ij"), -1).reshape(1, -1, 3)
+        C = xf.shape[1]
+        xm = xf + [0.0, 0.0, 0.25]
+        n = np.broadcast_to([0.0, 0.0, 1.0], xf.shape).copy()
+        mask = np.ones((1, C), dtype=bool)
+        dw = np.ones(1)
+    if case == "n_steps":
+        steps = 2
+    if case == "few_rows":
+        mask[:] = False
+        mask[:, [3, 100, 500, 900]] = True  # 4 rows, two parameters frozen
+        w[:, [3, 4]] = np.inf
+    if case == "one":
+        args = [a[0] for a in (p0, xm, xf, n, mask, dw, obs, w)]
+    else:
+        args = [p0, xm, xf, n, mask, dw, obs, w]
+    return args, active, steps
+
+
+def _gn_tensors(args, active, dtype, dev):
+    out = [torch.as_tensor(np.asarray(a), device=dev,
+                           dtype=torch.bool if a.dtype == bool else dtype).contiguous()
+           for a in args]
+    return out, None if active is None else torch.as_tensor(active, device=dev)
+
+
+GN_CASES = ["one", "batch32", "observed", "plane", "n_steps", "few_rows"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", GN_CASES)
+def test_gn_solve_kernel(cuda, dtype, case):
+    """The solve kernel against the plain gn_solve on the card, one launch:
+    p and the residuals within 1e-12 of (1 + their largest magnitude) in
+    float64 (the kernel sums the normal equations in another order; within
+    one float32 rounding in float32, where both round the same float64
+    numbers), rel at or below 64 eps wherever the plain version converged,
+    +inf for a problem that is not active, and near the plain version's
+    where n_steps cut the solve."""
+    from simpleicp_tpu_torch.models import solver
+    from simpleicp_tpu_torch.ops import solver_cuda
+
+    args, active, steps = _gn_case(case, np.random.default_rng(41))
+    t, act = _gn_tensors(args, active, dtype, cuda)
+    solver_cuda.reset_launch_counts()
+    p, r, rel = solver.gn_solve(*t, n_steps=steps, active=act)
+    assert solver_cuda.LAUNCHES == {"gn_solve": 1}
+    pp, rp, relp = solver.gn_solve_plain(*t, n_steps=steps, active=act)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 2.0**-23
+    for got, want in ((p, pp), (r, rp)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        err = float((got - want).abs().max())
+        assert err <= tol * (1.0 + float(want.abs().max())), (case, err)
+    rel, relp = rel.double().cpu(), relp.double().cpu()
+    done = relp <= GN_TOL
+    assert bool((rel[done] <= GN_TOL).all())
+    if act is not None:
+        assert bool(torch.isinf(rel[~act.cpu()]).all())
+        assert torch.equal(p[~act], pp[~act])
+    if case == "n_steps":
+        assert bool((relp > GN_TOL).all())
+        torch.testing.assert_close(rel, relp, rtol=1e-6, atol=0)
+    if case == "observed":
+        frozen = torch.isinf(t[7])
+        assert torch.equal(p[frozen], t[6][frozen])
+    if case == "plane":
+        want = torch.tensor([[0.0, 0, 0, 0, 0, -0.25]], dtype=dtype)
+        assert float((p.cpu() - want).abs().max()) <= 1e-15
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gn_solve_kernel_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same bits (a fixed
+    reduction order, no atomics): sharded ranks solve alike."""
+    from simpleicp_tpu_torch.models import solver
+
+    args, active, steps = _gn_case("batch32", np.random.default_rng(42))
+    t, act = _gn_tensors(args, active, dtype, cuda)
+    a = solver.gn_solve(*t, n_steps=steps, active=act)
+    b = solver.gn_solve(*t, n_steps=steps, active=act)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

@@ -46,9 +46,10 @@ def test_import_builds_nothing():
     moment.)"""
     code = ("import simpleicp_tpu_torch.ops.knn_cuda as k, simpleicp_tpu_torch._build as b, "
             "simpleicp_tpu_torch.ops.dilate_cuda as d, simpleicp_tpu_torch.ops.dilate_gate, "
+            "simpleicp_tpu_torch.ops.solver_cuda as s, "
             "simpleicp_tpu_torch.native as n, simpleicp_tpu_torch.ops, "
             "simpleicp_tpu_torch.utils, simpleicp_tpu_torch.models; "
-            "held = [m.__name__ for m in (k, d, n) if m._lib is not None]; "
+            "held = [m.__name__ for m in (k, d, s, n) if m._lib is not None]; "
             "print(dict(b.BUILD_LOGS), held); "
             "raise SystemExit(1 if b.BUILD_LOGS or held else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -65,8 +66,9 @@ def _port_sources():
 def test_sources_name_no_jax():
     files = _port_sources()
     names = {f.name for f in files}
-    assert {"knn.cu", "dilate.cu", "dilate_gate.py", "dilate_cuda.py", "gridhash.py",
-            "xyz_parser.cpp", "xyz_writer.cpp", "profiling.py"} <= names
+    assert {"knn.cu", "dilate.cu", "solver.cu", "dilate_gate.py", "dilate_cuda.py",
+            "solver_cuda.py", "gridhash.py", "xyz_parser.cpp", "xyz_writer.cpp",
+            "profiling.py"} <= names
     jax_import = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     jax_pkg = re.compile(r"simpleicp_tpu(?!_torch)\b")
     for f in files:
@@ -96,7 +98,7 @@ def test_no_cuda_means_an_error_not_the_cpu(monkeypatch):
 def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
     """On CPU tensors the wrappers are not called at all: the plain
     versions run because the tensors lie on the CPU."""
-    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
+    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda, solver_cuda
 
     def boom(*a, **k):
         raise AssertionError("kernel wrapper called for a CPU tensor")
@@ -106,6 +108,7 @@ def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
     monkeypatch.setattr(knn_cuda, "nn_search_cuda", boom)
     monkeypatch.setattr(knn_cuda, "nn_d2_cuda", boom)
     monkeypatch.setattr(dilate_cuda, "dilate_cuda", boom)
+    monkeypatch.setattr(solver_cuda, "gn_solve_cuda", boom)
     X = np.random.default_rng(1).uniform(-1, 1, (400, 3)) * [1, 1, 0.1]
     res = icp_register(X, X + 0.01, IcpConfig(correspondences=30), device="cpu")
     assert int(res.error_code) == 0
@@ -121,7 +124,7 @@ def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
 
 
 def test_wrappers_refuse_cpu_tensors():
-    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda
+    from simpleicp_tpu_torch.ops import dilate_cuda, knn_cuda, solver_cuda
 
     with pytest.raises(ValueError, match="CUDA"):
         dilate_cuda.dilate_cuda(torch.zeros((1, 4, 4), dtype=torch.int32), [((0, 0, 1),)])
@@ -134,6 +137,10 @@ def test_wrappers_refuse_cpu_tensors():
         knn_cuda.nn_search_cuda(q, q)
     with pytest.raises(ValueError, match="CUDA"):
         knn_cuda.nn_d2_cuda(q, q)
+    x, p = torch.zeros((1, 4, 3)), torch.zeros((1, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        solver_cuda.gn_solve_cuda(p, x, x, x, torch.ones((1, 4), dtype=torch.bool),
+                                  torch.ones(1), p, p, 24)
 
 
 def _xyz_pair(tmp_path):
