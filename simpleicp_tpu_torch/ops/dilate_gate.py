@@ -45,6 +45,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import record_counters, span
 from ..utils.sync import read_array, read_nonzero
 from . import dilate_cuda
 from .knn import min_dist_sq
@@ -342,33 +343,76 @@ _SWEEP_PAIR_BUDGET = 1 << 42
 # Band x kept-ref products above this run the blocked 2-D slab join instead
 # of one sweep: a ref farther than the radius along ONE axis cannot satisfy
 # d2 <= r^2, so restricting each block of band points to the refs within
-# the radius along the two longest grid axes is exact.
-_SLAB_SWEEP_MIN = 1 << 40
+# the radius along the two longest grid axes is exact. One sweep of 2^37
+# pairs takes ~42 ms at the rate below, the JAX package's 2^40 ~330 ms on
+# the H100, where the slab join of a 25M x 25M pair's band, its plan
+# included, takes tens of ms.
+_SLAB_SWEEP_MIN = 1 << 37
 # Candidate x-slab sizes of the slab join; _pick_slab_chunk_2d models the
 # cost of each from the sorted coordinates and picks the cheapest.
 _SLAB_CHUNK_OPTS = (1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18,
                     1 << 19)
 # The cost model's rates, measured by chip_smoke.py (`times`) on an NVIDIA
 # H100 80GB HBM3 at a 700 W power limit: the float32 pair rate of the 1-NN
-# kernel's d2-only mode, which the sweeps run (1e12 pairs in 302 ms), the
-# host cost of one block's exact sweep (gathers, the d2-only launch,
+# kernel's d2-only mode, which the sweeps run (1e12 pairs in 302 ms), and
+# the host cost of one block's exact sweep (gathers, the d2-only launch,
 # compare and scatter of a 512-point block: 0.058-0.072 ms on two
-# machines), and numpy's stable argsort per element on the host (1M
-# float32 keys: 0.13-0.22 s on three machines).
+# machines). _SLAB_WINDOW_SEC is no measured rate but a bias: a cost per
+# element of the band and of the slabs' ref windows, which favours larger
+# x-slabs (fewer blocks, more pairs). Its value is numpy's stable argsort
+# per element (the JAX package's model, whose sorts run on the host); the
+# slab plan's sorts run on the card here (6e-11 s an element), but with
+# that rate the model picks x-slabs a quarter as large at 50M x 50M, a
+# quarter of the pairs in four times the blocks, and the gate runs no
+# faster on the H100; with this bias it picks the JAX package's sizes.
 _SLAB_PAIRS_PER_SEC = 3.3e12
 _SLAB_CALL_SEC = 6.5e-5
-_SLAB_HOST_SORT_SEC = 2.2e-7
+_SLAB_WINDOW_SEC = 2.2e-7
 # Minimum y-sub-chunk size of the slab join (the second restriction axis).
 # Tests lower it to exercise multi-block slabs.
 _SLAB1_MIN = 1 << 12
 # Band x cloud products up to this many pairs resolve with direct sweeps;
-# beyond it the reference side is compacted first (_compact_refs).
-_DIRECT_SWEEP_MAX = 1 << 41
+# beyond it the reference side is compacted first (_compact_refs). A sweep
+# of 2^38 pairs takes ~83 ms at _SLAB_PAIRS_PER_SEC; the compaction took
+# ~35 ms at 50M points on the H100. Under the JAX package's 2^41 (~0.66 s
+# here) a 25M x 25M strips pair of little tilt (a band of 27k points) swept
+# every ref, 0.29 s a registration; compacted first, 0.10 s. The 1.34M
+# strips stay below it: their band x cloud peaks near 2^36.9.
+_DIRECT_SWEEP_MAX = 1 << 38
 
 
 def _slab1_of(S0: int) -> int:
     """y-sub-chunk size paired with an x-slab size S0."""
     return max(_SLAB1_MIN, min(S0 >> 4, 1 << 15))
+
+
+def _range_extrema(v: np.ndarray, ranges):
+    """For each (a, b) of ``ranges`` (index arrays, every a[k] < b[k]): the
+    (max, min) of ``v[a[k]:b[k]]``, exactly. ``v`` is reduced once over the
+    pieces between all the ranges' bounds, then each range over its pieces
+    through tables of maxima (minima) of runs of 2^j pieces."""
+    cuts = np.unique(np.concatenate([x for ab in ranges for x in ab]))
+    body = v[:cuts[-1]]
+    tables = []
+    for ufunc in (np.maximum, np.minimum):
+        levels = [ufunc.reduceat(body, cuts[:-1])]
+        while 2 << len(levels) <= 2 * levels[0].size:
+            prev, k = levels[-1], 1 << (len(levels) - 1)
+            levels.append(ufunc(prev[:-k], prev[k:]))
+        tables.append((ufunc, levels))
+    out = []
+    for a, b in ranges:
+        pa, pb = np.searchsorted(cuts, a), np.searchsorted(cuts, b)
+        j = np.floor(np.log2(pb - pa)).astype(np.int64)
+        got = []
+        for ufunc, levels in tables:
+            g = np.empty(a.size, dtype=v.dtype)
+            for k in np.unique(j).tolist():
+                at = j == k
+                g[at] = ufunc(levels[k][pa[at]], levels[k][pb[at] - (1 << k)])
+            got.append(g)
+        out.append(tuple(got))
+    return out
 
 
 def _pick_slab_chunk_2d(qx_sorted: np.ndarray, qy: np.ndarray,
@@ -384,43 +428,39 @@ def _pick_slab_chunk_2d(qx_sorted: np.ndarray, qy: np.ndarray,
     its candidate run of the y-sorted window is ~w * (sub_span + 2*reach)
     / ry_span under a roughly uniform y distribution (+15%). Cost = pairs
     over the 1-NN kernel's pair rate + one sweep launch per block + the
-    host sorts."""
+    window bias per element of the band and the windows. The JAX package's loop over the slabs, computed for all
+    slabs of all candidates at once (the spans by ``_range_extrema``, the
+    pairs summed in slab order), so that it picks what that loop picks."""
     nq = qx_sorted.size
-    best, best_cost = _SLAB_CHUNK_OPTS[-1], float("inf")
+    plans = []
     for cq in _SLAB_CHUNK_OPTS:
-        S1 = _slab1_of(cq)
         starts = np.arange(0, nq, cq)
         ends = np.minimum(starts + cq, nq)
-        lo = qx_sorted[starts] - reach
-        hi = qx_sorted[ends - 1] + reach
-        i0 = np.searchsorted(rx_sorted, lo)
-        i1 = np.searchsorted(rx_sorted, hi)
-        pairs = 0.0
-        windows = 0
-        n_blocks = 0
-        for s, e, a, b in zip(starts, ends, i0, i1):
-            w = int(b - a)
-            if w <= 0:
-                continue
-            ns = int(e - s)
-            nblk = -(-ns // S1)
-            qy_s = qy[s:e]
-            ry_w = ry[a:b]
-            r_span = float(ry_w.max() - ry_w.min())
-            sub_span = (
-                float(qy_s.max() - qy_s.min()) * min(S1 / ns, 1.0)
-                + 2.0 * reach
-            )
-            frac = min(1.0, sub_span / r_span) if r_span > 0.0 else 1.0
-            pairs += nblk * S1 * min(float(w), 1.15 * w * frac)
-            windows += w
-            n_blocks += nblk
-        if n_blocks == 0:
+        i0 = np.searchsorted(rx_sorted, qx_sorted[starts] - reach)
+        i1 = np.searchsorted(rx_sorted, qx_sorted[ends - 1] + reach)
+        live = i1 > i0
+        if not live.any():
             return cq
+        plans.append((cq, starts[live], ends[live], i0[live], i1[live]))
+    q_ext = _range_extrema(qy, [(s, e) for _, s, e, _, _ in plans])
+    r_ext = _range_extrema(ry, [(a, b) for _, _, _, a, b in plans])
+    best, best_cost = _SLAB_CHUNK_OPTS[-1], float("inf")
+    for (cq, s, e, a, b), (q_max, q_min), (r_max, r_min) in zip(plans, q_ext, r_ext):
+        S1 = _slab1_of(cq)
+        w, ns = b - a, e - s
+        nblk = -(-ns // S1)
+        r_span = (r_max - r_min).astype(np.float64)
+        sub_span = ((q_max - q_min).astype(np.float64) * np.minimum(S1 / ns, 1.0)
+                    + 2.0 * reach)
+        frac = np.where(r_span > 0.0,
+                        np.minimum(1.0, sub_span / np.where(r_span > 0.0, r_span, 1.0)), 1.0)
+        pairs = 0.0
+        for x in ((nblk * S1) * np.minimum(w.astype(np.float64), 1.15 * w * frac)).tolist():
+            pairs += x
         cost = (
             pairs / _SLAB_PAIRS_PER_SEC
-            + n_blocks * _SLAB_CALL_SEC
-            + _SLAB_HOST_SORT_SEC * (windows + nq)
+            + int(nblk.sum()) * _SLAB_CALL_SEC
+            + _SLAB_WINDOW_SEC * (int(w.sum()) + nq)
         )
         if cost < best_cost:
             best, best_cost = cq, cost
@@ -445,101 +485,127 @@ def _compact_refs(band_q: torch.Tensor, Xm0: torch.Tensor,
 
 
 def _chunked_min_d2(Xf: torch.Tensor, q_idx: torch.Tensor, Xm0: torch.Tensor,
-                    ref_idx: Optional[torch.Tensor]) -> torch.Tensor:
+                    ref_idx: Optional[torch.Tensor], info: dict) -> torch.Tensor:
     """min_dist_sq of the indexed fixed points against the (indexed)
     transformed movable points, in query chunks of at most
-    _SWEEP_PAIR_BUDGET pairs."""
+    _SWEEP_PAIR_BUDGET pairs; the sweep's counts go into ``info``."""
     R = Xm0 if ref_idx is None else Xm0[ref_idx]
     chunk = q_idx.shape[0]
     while chunk > 1024 and chunk * R.shape[0] > _SWEEP_PAIR_BUDGET:
         chunk //= 2
     chunk = max(1, chunk)
+    launches = -(-q_idx.shape[0] // chunk)
+    info.update(sweep_launches=launches, sweep_pairs=q_idx.shape[0] * R.shape[0],
+                sweep_queries=q_idx.shape[0], sweep_refs=launches * R.shape[0])
     return torch.cat([
         min_dist_sq(Xf[q_idx[s:s + chunk]], R)
         for s in range(0, q_idx.shape[0], chunk)
     ])
 
 
-def _blocked_slab_join(Xf, Xm0, remaining: torch.Tensor, ref_idx: torch.Tensor,
-                       plan: DilatePlan, out: torch.Tensor, r2: torch.Tensor,
-                       reach: float, info: dict) -> None:
-    """Resolve the band with the blocked 2-D slab join, writing into `out`.
+class _SlabBlocks(NamedTuple):
+    """The slab join's plan: the kept refs' movable rows, y-sorted within
+    each x-slab and concatenated (``refs``), the band points' fixed rows,
+    y-sorted within each x-slab (``queries``), both on the device, and per
+    block (host ints) its [start, end) of ``queries`` and its [start, end)
+    run of ``refs``."""
 
-      1. sort band points and kept refs along the longest grid axis (x),
-         on the host, from one read of their coordinates on two axes;
+    refs: torch.Tensor
+    queries: torch.Tensor
+    blocks: List[Tuple[int, int, int, int]]
+
+
+def _slab_blocks(Xf, Xm0, remaining: torch.Tensor, ref_idx: torch.Tensor,
+                 plan: DilatePlan, reach: float, info: dict) -> _SlabBlocks:
+    """The blocked 2-D slab join's plan:
+
+      1. sort band points and kept refs along the longest grid axis (x), on
+         the device; read the sorted coordinates on the two axes back once,
+         for the cost model;
       2. chunk the band points into x-slabs (size from the cost model);
          each slab's candidates are a contiguous x-window of the sorted
          refs;
       3. within a slab, sort the window's refs and the slab's points along
-         the second-longest axis (y) and chunk the points into y-blocks;
-         each block's candidates are a contiguous y-run of the window;
-      4. gather the per-slab y-sorted windows into one device array and
-         sweep each block against its run: one 1-NN launch per block.
+         the second-longest axis (y), on the device, all slabs at once by
+         (slab, y), and chunk the points into y-blocks; each block's
+         candidates are a contiguous y-run of the window, found by a
+         search for its (slab, y) bounds, read back once.
 
-    Exact: a window leaves out only refs farther than the radius (with a
-    relative slack for rounding) along one axis from every point of the
-    block. A band point with no candidate stays False (band points are
-    never in the IN mask `out` starts from)."""
+    Exact: a window leaves out only refs farther than ``reach`` (the radius
+    with a relative slack for rounding) along one axis from every point of
+    the block, whatever order ties take."""
     dev = Xf.device
     ax_order = np.argsort(np.asarray(plan.dims))[::-1]
     axes = [int(ax_order[0]), int(ax_order[1])]
-    rem_np = read_array(remaining)
-    ref_np = read_array(ref_idx)
-    qx0, qx1 = read_array(Xf[remaining][:, axes]).T
-    rx0, rx1 = read_array(Xm0[ref_idx][:, axes]).T
+    q = Xf[remaining][:, axes]
+    r = Xm0[ref_idx][:, axes]
+    qx0, qo = torch.sort(q[:, 0], stable=True)
+    qx1, q_sorted = q[qo, 1], remaining[qo]
+    rx0, ro = torch.sort(r[:, 0], stable=True)
+    rx1, r_by_x = r[ro, 1], ref_idx[ro]
+    nq, nr = qx0.shape[0], rx0.shape[0]
+    host = read_array(torch.cat([qx0, qx1, rx0, rx1]))
+    qx0_h, qx1_h = host[:nq], host[nq:2 * nq]
+    rx0_h, rx1_h = host[2 * nq:2 * nq + nr], host[2 * nq + nr:]
 
-    qo = np.argsort(qx0, kind="stable")
-    q_sorted, qx0_s, qx1_s = rem_np[qo], qx0[qo], qx1[qo]
-    ro = np.argsort(rx0, kind="stable")
-    r_by_x, rx0_s, rx1_by_x = ref_np[ro], rx0[ro], rx1[ro]
-
-    S0 = _pick_slab_chunk_2d(qx0_s, qx1_s, rx0_s, rx1_by_x, reach)
+    S0 = _pick_slab_chunk_2d(qx0_h, qx1_h, rx0_h, rx1_h, reach)
     S1 = _slab1_of(S0)
 
-    cat_parts = []          # per-slab y-sorted ref indices (movable rows)
-    blocks_q = []           # per-block band point indices (<= S1 each)
-    blocks_run = []         # per-block [start, end) in the gathered refs
-    m_off = 0
-    for s in range(0, q_sorted.size, S0):
-        e = min(s + S0, q_sorted.size)
-        i0, i1 = np.searchsorted(
-            rx0_s, [qx0_s[s] - reach, qx0_s[e - 1] + reach]
-        )
-        if i1 <= i0:
-            continue
-        wy = rx1_by_x[i0:i1]
-        yo = np.argsort(wy, kind="stable")
-        cat_parts.append(r_by_x[i0:i1][yo])
-        wy_s = wy[yo]
-        qo1 = np.argsort(qx1_s[s:e], kind="stable")
-        qs_by_y = q_sorted[s:e][qo1]
-        qy = qx1_s[s:e][qo1]
-        for t in range(0, qs_by_y.size, S1):
-            te = min(t + S1, qs_by_y.size)
-            j0, j1 = np.searchsorted(
-                wy_s, [qy[t] - reach, qy[te - 1] + reach]
-            )
-            if j1 <= j0:
-                continue
-            blocks_q.append(qs_by_y[t:te])
-            blocks_run.append((m_off + int(j0), m_off + int(j1)))
-        m_off += int(i1 - i0)
+    # x-windows of the slabs: [i0, i1) of the x-sorted refs
+    starts = np.arange(0, nq, S0)
+    ends = np.minimum(starts + S0, nq)
+    i0 = np.searchsorted(rx0_h, qx0_h[starts] - reach)
+    i1 = np.searchsorted(rx0_h, qx0_h[ends - 1] + reach)
+    w = np.maximum(i1 - i0, 0)
+    # the windows, concatenated; each ref keyed by (slab, rank of its y
+    # among all the windows' refs) and sorted by that key
+    width = int(w.sum())
+    slab = torch.repeat_interleave(torch.arange(starts.size, device=dev),
+                                   torch.as_tensor(w, device=dev), output_size=width)
+    w_off = torch.as_tensor(np.cumsum(w) - w - i0, device=dev)
+    pos = torch.arange(width, device=dev) - w_off[slab]
+    ys, by_y = torch.sort(rx1[pos], stable=True)
+    rank = torch.empty_like(by_y)
+    rank[by_y] = torch.arange(width, device=dev)
+    w_keys, w_order = torch.sort((slab << 32) | rank, stable=True)
+    refs = r_by_x[pos[w_order]]
+    # the band points by (slab, y) (two stable sorts); the y-blocks of S1
+    # points within a slab, and the (slab, y-rank) keys of their bounds:
+    # the rank of a y is the number of the windows' refs below it
+    by_y = torch.sort(qx1, stable=True)[1]
+    q_order = by_y[torch.sort(by_y // S0, stable=True)[1]]
+    queries, qy = q_sorted[q_order], qx1[q_order]
+    b_start = np.concatenate([np.arange(s, e, S1) for s, e in zip(starts, ends)])
+    b_slab = b_start // S0
+    b_end = np.minimum(b_start + S1, ends[b_slab])
+    lo = qy[torch.as_tensor(b_start, device=dev)] - reach
+    hi = qy[torch.as_tensor(b_end - 1, device=dev)] + reach
+    b_slab_t = torch.as_tensor(b_slab, device=dev) << 32
+    bounds = b_slab_t | torch.searchsorted(ys, torch.stack([lo, hi]))
+    j0, j1 = read_array(torch.searchsorted(w_keys, bounds))
+    blocks = [(int(a), int(b), int(c), int(d))
+              for a, b, c, d in zip(b_start, b_end, j0, j1) if d > c]
+    info.update(sweep="slab join", slab_S0=S0, slab_S1=S1, slab_blocks=len(blocks),
+                axes=axes)
+    return _SlabBlocks(refs=refs, queries=queries, blocks=blocks)
 
-    info.update(sweep="slab join", slab_S0=S0, slab_S1=S1,
-                slab_blocks=len(blocks_q), axes=axes)
-    if not blocks_q:
-        info["sweep_pairs"] = 0
-        return
-    R = Xm0[torch.as_tensor(np.concatenate(cat_parts), device=dev)]
-    q_all = torch.as_tensor(np.concatenate(blocks_q), device=dev)
-    pos = 0
-    pairs = 0
-    for qc, (j0, j1) in zip(blocks_q, blocks_run):
-        q = q_all[pos:pos + qc.size]
-        pos += qc.size
+
+def _sweep_slab_blocks(Xf, Xm0, blocks: _SlabBlocks, out: torch.Tensor,
+                       r2: torch.Tensor, info: dict) -> None:
+    """Sweep each block of the slab join against its run of the gathered
+    refs (one 1-NN launch a block), writing into ``out``. A band point with
+    no candidate stays False (band points are never in the IN mask ``out``
+    starts from)."""
+    R = Xm0[blocks.refs] if blocks.blocks else None
+    pairs = queries = refs = 0
+    for a, b, j0, j1 in blocks.blocks:
+        q = blocks.queries[a:b]
         out[q] = min_dist_sq(Xf[q], R[j0:j1]) <= r2
-        pairs += qc.size * (j1 - j0)
-    info["sweep_pairs"] = pairs
+        pairs += (b - a) * (j1 - j0)
+        queries += b - a
+        refs += j1 - j0
+    info.update(sweep_launches=len(blocks.blocks), sweep_pairs=pairs,
+                sweep_queries=queries, sweep_refs=refs)
 
 
 def overlap_mask_dilate(Xf: torch.Tensor, Xm0: torch.Tensor, radius: float,
@@ -551,8 +617,21 @@ def overlap_mask_dilate(Xf: torch.Tensor, Xm0: torch.Tensor, radius: float,
 
     ``Xm0`` is the movable cloud after the initial transform: the same
     tensor the plan's bounding box came from. ``stats``, when given, is
-    filled with the branches taken: band size, compaction and refs kept,
-    direct sweep or slab join."""
+    filled with the call's record, and each stage's seconds (the device
+    synchronized at each stage's end). The record: the plan's cell division
+    (``cell_div``), grid words (``n_words``) and stencil entries
+    (``in_offsets``, ``poss_offsets``); the dilations launched
+    (``dilations``: the classify's IN and POSS pair, and the compaction's
+    POSS); the band; the compaction on or off and the refs the band is
+    resolved against (``refs_kept``: all without the compaction, the kept
+    ones with it, 0 without a band); the sweep taken (``sweep``: "none",
+    "direct" or "slab join") and the slab join's blocks; the exact sweeps'
+    1-NN launches, (query, ref) pairs, and queries and refs read over
+    those launches (``sweep_*``). Every call keeps a copy of the record
+    through ``record_counters`` under the name "icp.gate" and runs its
+    stages as the spans ``icp.gate_classify``, ``icp.gate_compact``,
+    ``icp.gate_slab_plan`` and ``icp.gate_sweep``; neither reads anything
+    more back from the device."""
     info = {} if stats is None else stats
     t0 = time.perf_counter()
 
@@ -567,38 +646,60 @@ def overlap_mask_dilate(Xf: torch.Tensor, Xm0: torch.Tensor, radius: float,
             info[f"{stage}_s"] = t1 - t0
             t0 = t1
 
-    occ = _pack_occupancy_device(Xm0, plan=plan)
-    mark("pack")
-    grids = _dilate_in_poss(occ, plan)
-    mark("dilation")
-    in_mask, band_mask = _classify_grids(Xf, *grids, plan)
-    del occ, grids
-    band_idx = read_nonzero(band_mask)
-    mark("classify")
+    with span("icp.gate_classify"):
+        occ = _pack_occupancy_device(Xm0, plan=plan)
+        mark("pack")
+        grids = _dilate_in_poss(occ, plan)
+        mark("dilation")
+        in_mask, band_mask = _classify_grids(Xf, *grids, plan)
+        del occ, grids
+        band_idx = read_nonzero(band_mask)
+        mark("classify")
     n_band, n_refs = band_idx.shape[0], Xm0.shape[0]
-    info.update(n_fix=Xf.shape[0], n_mov=n_refs, band=n_band,
-                compaction=False, refs_kept=None, sweep="none")
+    info.update(cell_div=int(round(plan.inv_cell * float(radius))), n_words=plan.n_words,
+                in_offsets=len(plan.in_offsets), poss_offsets=len(plan.poss_offsets),
+                dilations=1, n_fix=Xf.shape[0], n_mov=n_refs, band=n_band,
+                compaction=False, refs_kept=n_refs if n_band else 0, sweep="none",
+                slab_blocks=0, sweep_launches=0, sweep_pairs=0, sweep_queries=0,
+                sweep_refs=0)
     _log.debug("dilate gate: band %d of %d fixed points", n_band, Xf.shape[0])
-    if n_band == 0:
-        return in_mask
+    out = in_mask
+    if n_band:
+        out = _resolve_band(Xf, Xm0, radius, plan, in_mask, band_idx, info, mark)
+    record_counters("icp.gate", info)
+    return out
 
+
+def _resolve_band(Xf, Xm0, radius: float, plan: DilatePlan, in_mask: torch.Tensor,
+                  band_idx: torch.Tensor, info: dict, mark) -> torch.Tensor:
+    """The mask with the band resolved exactly: a direct sweep of the band
+    against every ref, or, past _DIRECT_SWEEP_MAX pairs, against the refs
+    the compaction keeps, by the slab join past _SLAB_SWEEP_MIN."""
+    n_band, n_refs = band_idx.shape[0], Xm0.shape[0]
     r2 = torch.tensor(float(radius), dtype=Xf.dtype, device=Xf.device) ** 2
     out = in_mask.clone()
     ref_idx = None
     if n_band * n_refs > _DIRECT_SWEEP_MAX:
-        ref_idx = read_nonzero(_compact_refs(Xf[band_idx], Xm0, plan))
-        info.update(compaction=True, refs_kept=ref_idx.shape[0])
-        mark("compaction")
+        with span("icp.gate_compact"):
+            ref_idx = read_nonzero(_compact_refs(Xf[band_idx], Xm0, plan))
+            info.update(compaction=True, dilations=2, refs_kept=ref_idx.shape[0])
+            mark("compaction")
         if ref_idx.shape[0] == 0:
             return out  # no ref lies within the radius of any band point
-    n_kept = n_refs if ref_idx is None else ref_idx.shape[0]
+    n_kept = info["refs_kept"]
     if ref_idx is not None and n_band * n_kept > _SLAB_SWEEP_MIN:
-        _blocked_slab_join(Xf, Xm0, band_idx, ref_idx, plan, out, r2,
-                           float(radius) * 1.001 + 1e-12, info)
+        with span("icp.gate_slab_plan"):
+            blocks = _slab_blocks(Xf, Xm0, band_idx, ref_idx, plan,
+                                  float(radius) * 1.001 + 1e-12, info)
+            mark("slab_plan")
+        with span("icp.gate_sweep"):
+            _sweep_slab_blocks(Xf, Xm0, blocks, out, r2, info)
+            mark("sweep")
     else:
-        out[band_idx] = _chunked_min_d2(Xf, band_idx, Xm0, ref_idx) <= r2
-        info.update(sweep="direct", sweep_pairs=n_band * n_kept)
-    mark("sweep")
+        with span("icp.gate_sweep"):
+            out[band_idx] = _chunked_min_d2(Xf, band_idx, Xm0, ref_idx, info) <= r2
+            info.update(sweep="direct")
+            mark("sweep")
     _log.debug("dilate gate: %s sweep, %d band points x %d refs",
                info["sweep"], n_band, n_kept)
     return out

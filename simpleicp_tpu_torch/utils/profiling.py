@@ -9,6 +9,10 @@
     clock, for ``recorded_spans``. Otherwise it is one shared no-op
     context: no torch call, no allocation, no clock read. The profiler is
     the only switch. The registration's spans are named in ``SPANS``;
+  * ``record_counters(name, values)``: one call's counts of a stage (the
+    dilate gate's band, kept refs, sweeps and plan), kept whether or not a
+    profiler records, with the time they were kept, for
+    ``recorded_counters``;
   * ``trace(logdir)``: a context manager around ``torch.profiler`` (the
     host's operators, and the card's kernels, copies and fills where a card
     is present) that writes one Chrome trace file under ``logdir``, viewable
@@ -42,6 +46,14 @@ _log = get_logger(__name__)
 #   icp.gate       the overlap gate, up to its survivors' count read
 #   icp.gate_plan  inside icp.gate: the gate's method and dilate plan, with
 #                  its bounding-box read
+#   icp.gate_classify  inside icp.gate, the dilate gate (ops/dilate_gate.py):
+#                  the occupancy's pack, the IN and POSS dilations, the
+#                  classify and the band's read
+#   icp.gate_compact   the band-ref compaction with its read of the kept refs
+#   icp.gate_slab_plan the slab join's plan: the sorts on the card, the read
+#                  of the sorted coordinates, the cost model on the host, the
+#                  blocks' bounds and their read
+#   icp.gate_sweep     the band's exact sweeps, direct or by slab blocks
 #   icp.select     the fixed-count selection
 #   icp.normals    the selected points and their normals (or a
 #                  preparation's, unpacked)
@@ -55,7 +67,8 @@ _log = get_logger(__name__)
 #                    and the buffers' rows
 #   icp.finish     the uncertainties and the result
 #   icp.host_read  one counted read back to the host (utils/sync.py)
-SPANS = ("icp.register", "icp.plan", "icp.gate", "icp.gate_plan", "icp.select",
+SPANS = ("icp.register", "icp.plan", "icp.gate", "icp.gate_plan", "icp.gate_classify",
+         "icp.gate_compact", "icp.gate_slab_plan", "icp.gate_sweep", "icp.select",
          "icp.normals", "icp.loop", "icp.iteration", "icp.match", "icp.reject",
          "icp.solve", "icp.converge", "icp.finish", "icp.host_read")
 
@@ -104,6 +117,28 @@ def recorded_spans() -> List[Tuple[str, float, float]]:
 
 def clear_recorded_spans() -> None:
     _recorded.clear()
+
+
+# Counters kept per call of a stage, profiler or not: (name, time_ns on the
+# host's perf_counter clock, {counter: value}), the newest 2^12.
+_counters: collections.deque = collections.deque(maxlen=1 << 12)
+
+
+def record_counters(name: str, values: Dict[str, int]) -> None:
+    """Keep one call's counts of the stage ``name`` (host values the stage
+    already holds: keeping them reads nothing back from the device)."""
+    _counters.append((name, time.perf_counter_ns(), dict(values)))
+
+
+def recorded_counters(name: Optional[str] = None) -> List[Tuple[str, float, Dict[str, int]]]:
+    """The counts kept by ``record_counters`` (of the stage ``name``, or of
+    every stage), oldest first: (name, time_s on the host's
+    ``time.perf_counter`` clock, {counter: value})."""
+    return [(n, t / 1e9, dict(v)) for n, t, v in _counters if name in (None, n)]
+
+
+def clear_recorded_counters() -> None:
+    _counters.clear()
 
 
 @contextlib.contextmanager

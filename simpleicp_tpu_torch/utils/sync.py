@@ -38,11 +38,19 @@ def read_nonzero(mask: torch.Tensor) -> torch.Tensor:
 
 def read_array(t: torch.Tensor):
     """A tensor's values as a numpy array, counted (on a CUDA tensor this
-    waits for the device)."""
+    waits for the device). A CUDA tensor is copied into page-locked host
+    memory (PyTorch's caching host allocator), which the card writes at
+    several times the rate of pageable memory: the slab join reads back
+    hundreds of MB of coordinates."""
     global _reads
     _reads += 1
     with span("icp.host_read"):
-        return t.cpu().numpy()
+        if t.device.type != "cuda":
+            return t.cpu().numpy()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return host.numpy()
 
 
 def host_reads() -> int:

@@ -198,7 +198,7 @@ def test_slab_planner_edge_cases(monkeypatch):
     for args in cases:
         assert T._pick_slab_chunk_2d(*args, 0.05) in T._SLAB_CHUNK_OPTS
     monkeypatch.setattr(T, "_SLAB_PAIRS_PER_SEC", J._SLAB_PAIRS_PER_SEC)
-    monkeypatch.setattr(T, "_SLAB_HOST_SORT_SEC", J._SLAB_HOST_SORT_SEC)
+    monkeypatch.setattr(T, "_SLAB_WINDOW_SEC", J._SLAB_HOST_SORT_SEC)
     monkeypatch.setattr(T, "_SLAB_CALL_SEC", 0.0)
     monkeypatch.setattr(J, "_SLAB_CALL_SEC", 0.0)
     for args in cases:

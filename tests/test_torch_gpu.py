@@ -526,6 +526,44 @@ def test_dilate_gated_icp_register_on_the_card(cuda):
     assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dilate_gate_slab_join_on_the_card(cuda, dtype, monkeypatch):
+    """The band-ref compaction and the slab join, forced on a 200 000-point
+    strips pair (the movable strip tilted, so that a wide band is left to
+    resolve): two dilation launches, one d2-only 1-NN launch a block, the
+    slab plan's sorts and searches on the card, and the mask equal to the
+    brute mask bit for bit."""
+    from simpleicp_tpu_torch.ops import dilate_cuda, dilate_gate as dg, knn_cuda
+    from simpleicp_tpu_torch.ops.knn import min_dist_sq
+
+    for name, value in (("_DIRECT_SWEEP_MAX", 1), ("_SLAB_SWEEP_MIN", 1),
+                        ("_SLAB1_MIN", 256), ("_SLAB_CHUNK_OPTS", (4096, 16384))):
+        monkeypatch.setattr(dg, name, value)
+    rng = np.random.default_rng(17)
+    n, half, a = 200_000, 2.83, 0.05
+
+    def surface(xy):
+        return np.column_stack([xy, 0.3 * np.sin(2 * xy[:, 0]) + 0.2 * np.cos(3 * xy[:, 1])])
+
+    X_fix = surface(rng.uniform(-half, half, (n, 2)))
+    S = surface(rng.uniform(-half, half, (n, 2)) + [half / 2, 0.0])
+    R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0], [-np.sin(a), 0.0, np.cos(a)]])
+    Xf = torch.as_tensor(X_fix, dtype=dtype, device=cuda)
+    Xm = torch.as_tensor(S @ R.T, dtype=dtype, device=cuda)
+    lo, hi = dg.bbox_of(Xm).cpu().numpy()
+    plan = dg.plan_dilate_gate(None, None, 0.1, bbox=(lo, hi))
+    knn_cuda.reset_launch_counts()
+    dilate_cuda.reset_launch_counts()
+    stats = {}
+    mask = dg.overlap_mask_dilate(Xf, Xm, 0.1, plan, stats=stats)
+    assert stats["compaction"] and stats["sweep"] == "slab join", stats
+    assert stats["slab_blocks"] > 1 and stats["band"] > 5_000, stats
+    assert dilate_cuda.LAUNCHES == {"dilate": 2}
+    assert knn_cuda.LAUNCHES["nn_search_d2"] == stats["slab_blocks"]
+    brute = min_dist_sq(Xf, Xm) <= torch.tensor(0.1, dtype=dtype, device=cuda) ** 2
+    assert torch.equal(mask, brute)
+
+
 def _serving_pair(n_fix=20000, n_mov=18000, seed=14):
     rng = np.random.default_rng(seed)
 
