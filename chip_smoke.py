@@ -3455,8 +3455,16 @@ KERNEL_NAMES = {"match_scan": "match_transform", "match_finish": "match_transfor
 
 # Device launches (kernels, copies, fills) of one float32 registration of
 # the 100k cell (4 iterations), the Gauss-Newton loop one kernel launch an
-# iteration (H100 80GB HBM3, 700 W).
-LAUNCHES_100K = 1611
+# iteration and each iteration a replay of the loop's CUDA graph: 252
+# kernels in the first iteration's graph, 264 in a later one's, each
+# iteration's flag read, and the eager launches around the loop. The
+# profile counts 1 652 when it runs alone and 1 629 after the other phases
+# (H100 80GB HBM3, 700 W); replayed_in_full checks the exact count.
+LAUNCHES_100K = 1640
+# Inputs of the loop's body a graphed registration copies into its entry's
+# static buffers: Q, normals, planarity, sel_valid, obs_vals, obs_w, the
+# planarity threshold, the noise floor and the movable cloud.
+LOOP_INPUTS = 9
 
 
 def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
@@ -3482,7 +3490,8 @@ def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
     for label, (A, B, gate) in clouds.items():
         Af = torch.as_tensor(A, dtype=torch.float32, device=dev)
         Bf = torch.as_tensor(B, dtype=torch.float32, device=dev)
-        _register(torch, Af, Bf, torch.float32, "cuda", gate)  # warm-up
+        for _ in range(2):  # warm-up: a key's second registration captures its graphs
+            _register(torch, Af, Bf, torch.float32, "cuda", gate)
         sync.reset_host_reads()
         (res, _), wall_ms, kernels = traced(
             torch, lambda: _register(torch, Af, Bf, torch.float32, "cuda", gate))
@@ -3516,9 +3525,44 @@ def phase_profile(torch, scale_clouds, gated_big, cells, dil=None):
             "port_kernels_ms": port,
             "top_device_ms": [[k, v[0], v[1]] for k, v in top],
         }
+        if label == "100k":
+            replayed_in_full(torch, res, len(kernels),
+                             lambda: _register(torch, Af, Bf, torch.float32, "cuda", gate))
     emit({"phase": "profile", "what": "one float32 registration, default config "
           f"(gated: max_overlap_distance={GATE_RADIUS}, gate_method auto)", "cells": out})
     emit({"phase": "profile", "part": "trace", **trace_file(torch, X_fix, X_mov)})
+
+
+def replayed_in_full(torch, res, graphed: int, fn):
+    """The profiled registration ``res`` ran every iteration as a replay of
+    the loop's graphs, and its trace holds every device operation of every
+    replay: its ``graphed`` count of traced operations is that of the same
+    registration with the body run eagerly, one launch an operation, plus
+    the copies the graph's entry adds (the loop's inputs in, the carry in
+    and out)."""
+    import numpy as np
+
+    from simpleicp_tpu_torch import IcpConfig
+    from simpleicp_tpu_torch.models import icp
+    from simpleicp_tpu_torch.utils.profiling import recorded_counters
+
+    n_it = int(res.n_iterations)
+    loop = recorded_counters("icp.loop_graph")[-1][2]
+    check(loop == {"captures": 0, "replays": n_it, "eager": 0},
+          f"profile 100k: the loop ran {loop}, not {n_it} replays")
+    engages = icp._loop_graph_engages
+    icp._loop_graph_engages = lambda device, x: False
+    try:
+        (eager_res, _), _, events = traced(torch, fn)
+    finally:
+        icp._loop_graph_engages = engages
+    check(int(eager_res.n_iterations) == n_it, "profile 100k: the eager run's iterations differ")
+    carry = icp.make_carry_init(IcpConfig(), torch.float32, torch.zeros(1, 6),
+                                torch.eye(4)[None], np.zeros(1, np.int32))
+    copies = LOOP_INPUTS + 2 * len(icp._tensors(carry))
+    check(graphed == len(events) + copies,
+          f"profile 100k: {graphed} traced operations replayed, {len(events)} eager "
+          f"+ {copies} copies expected")
 
 
 def trace_file(torch, X_fix, X_mov):

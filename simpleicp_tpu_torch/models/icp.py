@@ -42,7 +42,9 @@ survivors (the dilate gate also its bounding box and band; a grid engine
 resolving its cell cap on the device one occupancy; ``utils/sync.py``
 counts them). Its results equal those of the JAX
 package's ``lax.while_loop`` field for field: the state it keeps on an
-error, the iteration it stops at, the buffers it fills.
+error, the iteration it stops at, the buffers it fills. On the card with
+the brute matcher each iteration is a replay of a cached CUDA graph of
+the same body (``models/loop_graph.py``), bit for bit the eager run.
 
 Chunked dispatch (``dispatch="chunked"``, and "auto" when the card-priced
 estimate exceeds ``program_budget_s``; ``_plan_dispatch``): the loop runs
@@ -85,8 +87,9 @@ from ..ops.transform import (
 )
 from ..utils import device_policy
 from ..utils.device import resolve
-from ..utils.profiling import span
+from ..utils.profiling import record_counters, span
 from ..utils.sync import read_array, read_flag, read_nonzero
+from . import loop_graph
 from .solver import estimate_uncertainties, gn_solve, host_rotation, linearized_solve
 
 # Error codes of IcpResult.error_code.
@@ -167,6 +170,10 @@ class _Carry(NamedTuple):
     iter_masks: torch.Tensor
     iter_dists: torch.Tensor
     iter_gn: torch.Tensor
+    it_dev: torch.Tensor            # (1,) int64: ``it`` on the device, the
+                                    # trajectory rows' index
+    flag: torch.Tensor              # (1,) bool: every pair has stopped (the
+                                    # loop's one read an iteration)
 
 
 def _check_round_linspace_domain(correspondences: int, nf: int) -> None:
@@ -372,14 +379,32 @@ def _make_match_fn(Q, Xm, cfg: IcpConfig, grid=None):
     builds once) is ``_make_grid_match_fn``."""
     if cfg.match_method == "grid":
         return _make_grid_match_fn(Q, Xm, cfg, grid)
+    return _BruteMatch(Q, Xm)
 
-    def match_fn(Ht):
-        _, m_idx = match_transform(Q, Xm, Ht)
-        m_orig = _rows(Xm, m_idx)
+
+class _BruteMatch(NamedTuple):
+    """The brute matcher of B pairs: the match kernel over the
+    untransformed movable clouds Xm (B, nm, 3) for the queries Q (B, C, 3).
+    Its shapes are static, so the loop can capture it (``run_icp_loop``)."""
+
+    Q: torch.Tensor
+    Xm: torch.Tensor
+
+    def __call__(self, Ht):
+        _, m_idx = match_transform(self.Q, self.Xm, Ht)
+        m_orig = _rows(self.Xm, m_idx)
         m_valid = torch.ones(m_idx.shape, dtype=torch.bool, device=m_idx.device)
         return m_idx, apply_H(m_orig, Ht), m_orig, m_valid
 
-    return match_fn
+
+class _RowsOf(NamedTuple):
+    """The rows of a per-point quantity P (B, nm) at the matched indices:
+    the matched movable points' planarity."""
+
+    P: torch.Tensor
+
+    def __call__(self, m_idx):
+        return _rows(self.P, m_idx)
 
 
 def back_transform(q: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
@@ -422,7 +447,8 @@ def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
     """The loop-entry state of B pairs (iteration 0, nothing executed):
     obs_vals (B, 6), H0 (B, 4, 4), error0 the host int array (B,) of the
     error codes the pairs start from. The monolithic loop and
-    ``_run_chunked`` start from it alike."""
+    ``_run_chunked`` start from it alike. The loop writes its tensors in
+    place, so none of them shares memory with the arguments."""
     C = cfg.correspondences
     T = cfg.max_iterations
     dev = H0.device
@@ -440,11 +466,11 @@ def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
         it=0,
         go=bool(np.any(error0 == ERR_OK)),
         n_it=None if B == 1 else full((), 0, torch.int32),
-        p=obs_vals.to(dtype),
-        H=H0,
+        p=obs_vals.to(dtype, copy=True),
+        H=H0.clone(),
         dist_w=full((), 1.0 if auto_dw else cfg.distance_weights),
         converged=full((), False, torch.bool),
-        error=torch.as_tensor(error0, dtype=torch.int32, device=dev),
+        error=torch.tensor(np.asarray(error0), dtype=torch.int32, device=dev),
         prev_mean=full((), float("inf")),
         prev_std=full((), float("inf")),
         iter_counts=full((T,), 0, torch.int32),
@@ -461,12 +487,196 @@ def make_carry_init(cfg: IcpConfig, dtype, obs_vals, H0, error0) -> _Carry:
         iter_masks=full((R, C), False, torch.bool),
         iter_dists=full((R, C), 0.0),
         iter_gn=full((T,), 0.0),
+        it_dev=torch.zeros(1, dtype=torch.int64, device=dev),
+        flag=torch.zeros(1, dtype=torch.bool, device=dev),
     )
+
+
+def _tensors(c: _Carry) -> dict:
+    """The carry's tensors by field (``n_it`` of one pair is None)."""
+    return {k: v for k, v in c._asdict().items() if isinstance(v, torch.Tensor)}
+
+
+class _LoopInputs(NamedTuple):
+    """What the loop's body reads and never writes, for B pairs: Q, normals
+    (B, C, 3), planarity, sel_valid (B, C), obs_vals, obs_w (B, 6), the
+    planarity threshold () and each pair's noise floor (B,) in the
+    coordinate dtype, the matcher and the movable planarity's."""
+
+    Q: torch.Tensor
+    normals: torch.Tensor
+    planarity: torch.Tensor
+    sel_valid: torch.Tensor
+    obs_vals: torch.Tensor
+    obs_w: torch.Tensor
+    min_planarity: torch.Tensor
+    noise_floor: torch.Tensor
+    match_fn: object
+    mov_planarity_fn: object
+
+
+def _crit_met(new, old, noise_floor, min_change: float):
+    return (pct_change(new, old) < min_change) | (torch.abs(new - old) <= noise_floor)
+
+
+def _put(dst: torch.Tensor, new: torch.Tensor, hold: Optional[torch.Tensor]) -> None:
+    """dst = new in place, but for the pairs where ``hold`` (B,) is set
+    (None: none), which keep their rows."""
+    if hold is None:
+        dst.copy_(new)
+    else:
+        torch.where(hold.view(-1, *[1] * (dst.dim() - 1)), dst, new, out=dst)
+
+
+def _iterate(x: _LoopInputs, c: _Carry, first: bool, cfg: IcpConfig) -> None:
+    """One match -> reject -> solve -> converge iteration of B pairs, in
+    place: it reads ``x`` and the carry's tensors and writes the carry's
+    tensors, its ``it_dev`` and its stop ``flag`` (``c.it`` and ``c.go``
+    are the host's). ``first`` takes iteration 0's branches. Every shape is
+    static and nothing is read back, so the same body runs eagerly or as a
+    CUDA graph (``run_icp_loop``)."""
+    B = x.Q.shape[0]
+    nonlinear = cfg.solver == "nonlinear"
+    # In a batch, the pairs that pass the loop's entry test; one that has
+    # stopped keeps its state and its buffers' rows, and its n_it.
+    active = None if c.n_it is None else ~c.converged & (c.error == ERR_OK)
+    with span("icp.match"):
+        Ht = rbp_to_H(c.p) if nonlinear else c.H
+        m_idx, m_t, m_orig, m_valid = x.match_fn(Ht)
+
+    with span("icp.reject"):
+        d = ((m_t - x.Q) * x.normals).sum(dim=-1)  # signed p2plane distances
+
+        # "python": planarity gate first, median/MAD of the survivors;
+        # "joint": median/MAD of all matches, both criteria jointly.
+        matched = x.sel_valid & m_valid
+        mask_p = matched & (x.planarity >= x.min_planarity)
+        if x.mov_planarity_fn is not None:
+            mask_p = mask_p & (x.mov_planarity_fn(m_idx) >= x.min_planarity)
+        mad_base = matched if cfg.rejection_staging == "joint" else mask_p
+        med = masked_median(d, mad_base)
+        sigma = 3.0 * masked_mad(d, mad_base, scale=cfg.mad_scale)
+        mask = mask_p & (torch.abs(d - med[:, None]) <= sigma[:, None])
+
+        count = mask.sum(dim=-1).to(torch.int32)
+        err = torch.where(count < 6, torch.full_like(c.error, ERR_TOO_FEW_CORRESPONDENCES),
+                          c.error)
+        if first:
+            orig = (count, masked_mean(d, mask), masked_std(d, mask, ddof=cfg.std_ddof))
+        dw = c.dist_w
+        if first and cfg.distance_weights is None:
+            # 1/std^2 of the matched distances, estimated in iteration 0
+            dw = 1.0 / torch.clamp(masked_std(d, mask), min=1e-30) ** 2
+
+    with span("icp.solve"):
+        if nonlinear:
+            p_new, residuals, gn_rel = gn_solve(
+                c.p, m_orig, x.Q, x.normals, mask, dw, x.obs_vals, x.obs_w,
+                n_steps=cfg.gn_iterations, active=active,
+            )
+            H_new = rbp_to_H(p_new)
+        else:
+            gn_rel = torch.zeros(B, dtype=x.Q.dtype, device=x.Q.device)
+            dH, residuals, _ = linearized_solve(m_t, x.Q, x.normals, mask)
+            H_new = compose_H(dH, c.H)
+            a1, a2, a3 = rotation_matrix_to_euler_angles(H_new)
+            p_new = torch.cat([torch.stack([a1, a2, a3], dim=-1), H_new[:, :3, 3]], dim=-1)
+
+    with span("icp.converge"):
+        mean = masked_mean(residuals, mask)
+        std = masked_std(residuals, mask, ddof=cfg.std_ddof)
+        if first:
+            converged = torch.zeros_like(c.converged)
+        else:
+            converged = (_crit_met(mean, c.prev_mean, x.noise_floor, cfg.min_change)
+                         & _crit_met(std, c.prev_std, x.noise_floor, cfg.min_change))
+
+        # On error keep the previous state; a stopped pair keeps all of it.
+        bad = err != ERR_OK
+        still = None if active is None else ~active
+        keep = bad if still is None else bad | still
+        for dst, new in ((c.p, p_new), (c.H, H_new), (c.residuals, residuals),
+                         (c.residual_mask, mask), (c.m_idx, m_idx)):
+            _put(dst, new, keep)
+        for dst, new in ((c.converged, converged & ~bad), (c.error, err),
+                         (c.prev_mean, mean), (c.prev_std, std)):
+            _put(dst, new, still)
+        if dw is not c.dist_w:
+            _put(c.dist_w, dw, still)
+        if first:
+            for dst, new in zip((c.orig_count, c.orig_mean, c.orig_std), orig):
+                _put(dst, new, still)
+        rows = [(c.iter_counts, count), (c.iter_means, mean), (c.iter_stds, std),
+                (c.iter_gn, gn_rel)]
+        if first or c.iter_ps.shape[1] > 1:
+            rows += [(c.iter_ps, c.p), (c.iter_midx, m_idx), (c.iter_masks, mask),
+                     (c.iter_dists, d)]
+        for buf, v in rows:
+            if still is not None:
+                v = _keep_stopped(active, v, buf.index_select(1, c.it_dev)[:, 0])
+            buf.index_copy_(1, c.it_dev, v[:, None])
+        if active is not None:
+            c.n_it.add_(active.to(torch.int32))
+        c.it_dev.add_(1)
+        torch.all(c.converged | (c.error != ERR_OK), dim=0, keepdim=True, out=c.flag)
 
 
 def _keep_stopped(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
     """new where the pair is active, else old (active (B,) against (B, ...))."""
     return torch.where(active.view(-1, *[1] * (new.dim() - 1)), new, old)
+
+
+def _loop_graph_engages(device: torch.device, x: _LoopInputs) -> bool:
+    """Whether the loop's body runs as a cached CUDA graph on ``device``:
+    on a card, with the brute matcher over the loop's own queries, and the
+    movable planarity (if any) gathered from a tensor. Everything else runs
+    the same body eagerly: the CPU; the grid matcher, whose cell list is
+    sized anew at every registration; the sharded matcher, whose
+    collectives pass through the host."""
+    m, pm = x.match_fn, x.mov_planarity_fn
+    return (device.type == "cuda" and isinstance(m, _BruteMatch) and m.Q is x.Q
+            and (pm is None or isinstance(pm, _RowsOf)))
+
+
+def _loop_graph_key(x: _LoopInputs, cfg: IcpConfig) -> tuple:
+    """What the captured body bakes in: the shapes (B pairs, C
+    correspondences, the movable cloud's length; the carry's follow from
+    B, C and the configuration), the dtype, and the configuration's fields
+    that the body reads as constants. The device is the cache's own."""
+    B, C = x.Q.shape[:2]
+    return (x.Q.dtype, B, C, x.match_fn.Xm.shape[1], cfg.solver, cfg.rejection_staging,
+            cfg.mad_scale, cfg.min_change, cfg.std_ddof, cfg.distance_weights is None,
+            cfg.gn_iterations, cfg.max_iterations, cfg.record_trajectory,
+            x.mov_planarity_fn is not None)
+
+
+def _input_tensors(x: _LoopInputs) -> list:
+    pm = [] if x.mov_planarity_fn is None else [x.mov_planarity_fn.P]
+    return [*x[:8], x.match_fn.Xm, *pm]
+
+
+def _static_state(x: _LoopInputs, c: _Carry):
+    """Buffers shaped as a registration's inputs and carry, for a graph's
+    entry: (the static inputs, the static carry)."""
+    Q, *rest = (torch.empty_like(t) for t in _input_tensors(x))
+    xs = _LoopInputs(Q, *rest[:7], _BruteMatch(Q, rest[7]),
+                     None if x.mov_planarity_fn is None else _RowsOf(rest[8]))
+    return xs, c._replace(**{k: torch.empty_like(v) for k, v in _tensors(c).items()})
+
+
+def _iterations(step, c: _Carry, hi: int, T: int) -> _Carry:
+    """The loop on the host: ``step(first)`` runs an iteration of the carry
+    ``c``, while the JAX loop's entry test, (it < hi) & ~converged &
+    (error == OK) for some pair, holds; it reads the body's flag after
+    every iteration but the last of max_iterations ``T``."""
+    it, go = c.it, c.go
+    while go and it < hi:
+        with span("icp.iteration"):
+            step(it == 0)
+            it += 1
+            if it < T:
+                go = not read_flag(c.flag)
+    return c._replace(it=it, go=go)
 
 
 def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
@@ -492,6 +702,20 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
     iteration for the whole batch. With one pair the loop ends when the
     pair stops, so nothing needs freezing and nothing is.
 
+    On a card with the brute matcher (``_loop_graph_engages``) the body
+    runs over the static buffers of its key's cached entry
+    (``loop_graph.py``, keyed by ``_loop_graph_key``) once the key has been
+    seen before; its first sighting runs eagerly and keeps nothing, so a
+    stream of pairs of ever new sizes captures nothing. Through the entry,
+    the inputs and the carry are copied in, each iteration is one replay of
+    the first iteration's graph or of the later iterations' (captured after
+    an eager warm-up iteration of each), and the final carry is copied out,
+    so that no result aliases the entry's buffers. Elsewhere the body runs
+    eagerly on the carry itself. Both run the same operations, so their
+    results are the same bits. The counts of the iterations by how they ran
+    are kept as the counters ``icp.loop_graph`` (``captures``, ``replays``,
+    ``eager``).
+
     Chunked dispatch: ``carry_in`` resumes from an earlier call's carry
     (``error0`` and ``H0`` are then unused), and ``it_hi`` stops after
     iteration it_hi - 1. The entry test stays the JAX package's, (it <
@@ -506,132 +730,51 @@ def run_icp_loop(Q, normals, planarity, sel_valid, obs_vals, obs_w,
     (``_uncertainties`` of the final carry).
     """
     T = cfg.max_iterations
-    B = Q.shape[0]
-    auto_dw = cfg.distance_weights is None
-    nonlinear = cfg.solver == "nonlinear"
-    min_planarity = torch.tensor(cfg.min_planarity, dtype=dtype, device=Q.device)
-
-    # Numerical noise floor of each pair's residual statistics: a mean/std
-    # change at or below eps(dtype) * |coords| * scale counts as converged.
-    noise_floor = (
-        cfg.convergence_floor_scale * torch.finfo(dtype).eps
-        * torch.abs(Q).amax(dim=(-2, -1))
-    )
-
-    def crit_met(new, old):
-        return (pct_change(new, old) < cfg.min_change) | (
-            torch.abs(new - old) <= noise_floor
-        )
-
-    def body(c: _Carry, active: Optional[torch.Tensor]) -> _Carry:
-        with span("icp.match"):
-            Ht = rbp_to_H(c.p) if nonlinear else c.H
-            m_idx, m_t, m_orig, m_valid = match_fn(Ht)
-
-        with span("icp.reject"):
-            d = ((m_t - Q) * normals).sum(dim=-1)  # signed p2plane distances
-
-            # "python": planarity gate first, median/MAD of the survivors;
-            # "joint": median/MAD of all matches, both criteria jointly.
-            matched = sel_valid & m_valid
-            mask_p = matched & (planarity >= min_planarity)
-            if mov_planarity_fn is not None:
-                mask_p = mask_p & (mov_planarity_fn(m_idx) >= min_planarity)
-            mad_base = matched if cfg.rejection_staging == "joint" else mask_p
-            med = masked_median(d, mad_base)
-            sigma = 3.0 * masked_mad(d, mad_base, scale=cfg.mad_scale)
-            mask = mask_p & (torch.abs(d - med[:, None]) <= sigma[:, None])
-
-            count = mask.sum(dim=-1).to(torch.int32)
-            err = torch.where(count < 6, torch.full_like(c.error, ERR_TOO_FEW_CORRESPONDENCES),
-                              c.error)
-
-            if c.it == 0:
-                orig_count = count
-                orig_mean = masked_mean(d, mask)
-                orig_std = masked_std(d, mask, ddof=cfg.std_ddof)
-            else:
-                orig_count, orig_mean, orig_std = c.orig_count, c.orig_mean, c.orig_std
-
-            if auto_dw and c.it == 0:
-                # 1/std^2 of the matched distances, estimated in iteration 0
-                dw = 1.0 / torch.clamp(masked_std(d, mask), min=1e-30) ** 2
-            else:
-                dw = c.dist_w
-
-        with span("icp.solve"):
-            if nonlinear:
-                p_new, residuals, gn_rel = gn_solve(
-                    c.p, m_orig, Q, normals, mask, dw, obs_vals, obs_w,
-                    n_steps=cfg.gn_iterations, active=active,
-                )
-                H_new = rbp_to_H(p_new)
-            else:
-                gn_rel = torch.zeros(B, dtype=dtype, device=Q.device)
-                dH, residuals, _ = linearized_solve(m_t, Q, normals, mask)
-                H_new = compose_H(dH, c.H)
-                a1, a2, a3 = rotation_matrix_to_euler_angles(H_new)
-                p_new = torch.cat([torch.stack([a1, a2, a3], dim=-1), H_new[:, :3, 3]], dim=-1)
-
-        with span("icp.converge"):
-            mean = masked_mean(residuals, mask)
-            std = masked_std(residuals, mask, ddof=cfg.std_ddof)
-            converged = crit_met(mean, c.prev_mean) & crit_met(std, c.prev_std)
-            if c.it == 0:
-                converged = torch.zeros_like(converged)
-
-            # On error keep the previous state.
-            bad = err != ERR_OK
-            new = dict(
-                p=torch.where(bad[:, None], c.p, p_new),
-                H=torch.where(bad[:, None, None], c.H, H_new),
-                dist_w=dw,
-                converged=converged & ~bad,
-                error=err,
-                prev_mean=mean,
-                prev_std=std,
-                orig_count=orig_count,
-                orig_mean=orig_mean,
-                orig_std=orig_std,
-                residuals=torch.where(bad[:, None], c.residuals, residuals),
-                residual_mask=torch.where(bad[:, None], c.residual_mask, mask),
-                m_idx=torch.where(bad[:, None], c.m_idx, m_idx),
-            )
-            rows = {"iter_counts": count, "iter_means": mean, "iter_stds": std,
-                    "iter_gn": gn_rel}
-            if c.it < c.iter_ps.shape[1]:
-                rows.update(iter_ps=new["p"], iter_midx=m_idx, iter_masks=mask, iter_dists=d)
-            if active is not None:
-                # A pair that has stopped keeps its state and its buffers' rows.
-                new = {k: _keep_stopped(active, v, getattr(c, k)) for k, v in new.items()}
-                rows = {k: _keep_stopped(active, v, getattr(c, k)[:, c.it])
-                        for k, v in rows.items()}
-                new["n_it"] = c.n_it + active.to(torch.int32)
-            # The buffers are this loop's own; they are updated in place.
-            for k, v in rows.items():
-                getattr(c, k)[:, c.it] = v
-            return c._replace(it=c.it + 1, **new)
-
-    if carry_in is None:
-        c = make_carry_init(cfg, dtype, obs_vals, H0, error0)
-        active = None if B == 1 else torch.as_tensor(error0 == ERR_OK, device=Q.device)
-    else:
-        c = carry_in
-        active = None if B == 1 else ~c.converged & (c.error == ERR_OK)
+    c = make_carry_init(cfg, dtype, obs_vals, H0, error0) if carry_in is None else carry_in
     hi = T if it_hi is None else min(it_hi, T)
-    # The JAX loop tests (it < hi) & ~converged & (error == OK) before every
-    # iteration, the first included, for each pair.
-    go = c.go
-    while go and c.it < hi:
-        with span("icp.iteration"):
-            c = body(c, active)
-            if c.it < T:
-                stopped = c.converged | (c.error != ERR_OK)
-                if active is not None:
-                    active = ~stopped
-                    stopped = stopped.all()
-                go = not read_flag(stopped)
-    return c._replace(go=go)
+    counts = {"captures": 0, "replays": 0, "eager": 0}
+    if c.go and c.it < hi:
+        x = _LoopInputs(
+            Q, normals, planarity, sel_valid, obs_vals, obs_w,
+            torch.full((), cfg.min_planarity, dtype=dtype, device=Q.device),
+            # Numerical noise floor of each pair's residual statistics: a
+            # mean/std change at or below eps(dtype) * |coords| * scale
+            # counts as converged.
+            cfg.convergence_floor_scale * torch.finfo(dtype).eps
+            * torch.abs(Q).amax(dim=(-2, -1)),
+            match_fn, mov_planarity_fn)
+        entry = (loop_graph.entry(Q.device, _loop_graph_key(x, cfg),
+                                  lambda: _static_state(x, c))
+                 if _loop_graph_engages(Q.device, x) else None)
+        if entry is not None:
+            c = _run_graphed(entry, x, c, cfg, hi, counts)
+        else:
+            def step(first):
+                _iterate(x, c, first, cfg)
+                counts["eager"] += 1
+
+            c = _iterations(step, c, hi, T)
+    record_counters("icp.loop_graph", counts)
+    return c
+
+
+def _run_graphed(entry: loop_graph.Graphed, x: _LoopInputs, c: _Carry, cfg: IcpConfig,
+                 hi: int, counts) -> _Carry:
+    """``run_icp_loop``'s iterations of the carry ``c`` over the static
+    buffers of its key's ``entry``: inputs and carry copied in, each
+    iteration a replay (or an eager warm-up and a capture), the final carry
+    copied out."""
+    with entry.held() as (xs, cs):
+        for dst, src in zip(_input_tensors(xs), _input_tensors(x)):
+            dst.copy_(src)
+        for k, v in _tensors(c).items():
+            getattr(cs, k).copy_(v)
+
+        def step(first):
+            entry.run(first, lambda: _iterate(xs, cs, first, cfg), counts)
+
+        out = _iterations(step, cs._replace(it=c.it, go=c.go), hi, cfg.max_iterations)
+        return out._replace(**{k: v.clone() for k, v in _tensors(out).items()})
 
 
 def _uncertainties(c: _Carry, Q, normals, obs_vals, obs_w, gather_fn):
@@ -1655,10 +1798,7 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
             error0 = np.full(1, ERR_OK, np.int32)
 
     with span("icp.loop"):
-        mov_planarity_fn = None
-        if planarity_mov is not None:
-            def mov_planarity_fn(m_idx):
-                return _rows(planarity_mov[None], m_idx)
+        mov_planarity_fn = None if planarity_mov is None else _RowsOf(planarity_mov[None])
 
         loop_args = (Q, normals, planarity, sel_valid, obs_vals[None], obs_w[None], cfg,
                      dtype, error0, H0[None], _make_match_fn(Q, Xm1, cfg, grid=match_grid))

@@ -10,8 +10,9 @@
     context: no torch call, no allocation, no clock read. The profiler is
     the only switch. The registration's spans are named in ``SPANS``;
   * ``record_counters(name, values)``: one call's counts of a stage (the
-    dilate gate's band, kept refs, sweeps and plan), kept whether or not a
-    profiler records, with the time they were kept, for
+    dilate gate's band, kept refs, sweeps and plan; the loop's iterations
+    by how they ran, ``icp.loop_graph``), kept whether or not a profiler
+    records, with the time they were kept, for
     ``recorded_counters``;
   * ``trace(logdir)``: a context manager around ``torch.profiler`` (the
     host's operators, and the card's kernels, copies and fills where a card
@@ -58,7 +59,9 @@ _log = get_logger(__name__)
 #   icp.normals    the selected points and their normals (or a
 #                  preparation's, unpacked)
 #   icp.loop       the ICP loop from its initial state (every chunk)
-#   icp.iteration  one iteration with its stop-flag read; inside it
+#   icp.iteration  one iteration with its stop-flag read; inside it, where
+#                  the iteration runs eagerly (a replay of its CUDA graph,
+#                  models/loop_graph.py, runs no Python inside it)
 #   icp.match        the transform and the match
 #   icp.reject       the distances, the planarity gate, median/MAD, the mask
 #                    and its count, iteration 0's statistics and weight
@@ -98,6 +101,11 @@ class _Span:
         self.op.__exit__(*exc)
         _recorded.append((self.name, self.t0, t1))
         return False
+
+
+def recording() -> bool:
+    """Whether a profiler records."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def span(name: str):
