@@ -1573,8 +1573,9 @@ def phase_chunked(torch, dil=None, bigc=None):
     budget, stages = chunk_budget(N_BIGC, C_BIGC, cap)
     ccfg = dataclasses.replace(cfg, program_budget_s=budget, chunk_iterations=1)
     plan = icp._plan_dispatch(dataclasses.replace(rcfg, program_budget_s=budget,
-                                                  chunk_iterations=1, match_cell_cap=cap),
-                              N_BIGC, N_BIGC, guarded=True, has_normals=False, gate_pairs=0.0)
+                                                  chunk_iterations=1),
+                              N_BIGC, N_BIGC, device=dev, has_normals=False,
+                              match_cell_cap=cap)
     check(plan.dispatch == "chunked" and plan.knn_block > 0 and plan.knn_grid,
           f"big-C at budget {budget}: plan {plan}")
     (mono, mono_c), mono_s, mono_l, mono_r = timed(torch, lambda: register(Xf, Xm, cfg))

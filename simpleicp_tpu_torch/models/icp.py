@@ -906,6 +906,19 @@ def _user_normals(normals_fix, planarity_fix, nf: int, dtype, dev):
     return normals, planarity
 
 
+def _observed(rbp_observed_values, rbp_observation_weights, pairs: tuple, dtype, dev):
+    """(observed values, observation weights, H0): the user's observations
+    as tensors of shape ``pairs + (6,)`` on ``dev`` (zeros where not
+    given; ``pairs`` is () for one pair, (B,) for a batch) and the initial
+    transforms they give."""
+    zeros = torch.zeros(pairs + (6,), dtype=dtype, device=dev)
+    obs_vals = (zeros if rbp_observed_values is None
+                else _as_tensor(rbp_observed_values, dtype, dev))
+    obs_w = (zeros if rbp_observation_weights is None
+             else _as_tensor(rbp_observation_weights, dtype, dev))
+    return obs_vals, obs_w, rbp_to_H(obs_vals)
+
+
 def plan_warm_start(
     X_fix,
     X_mov,
@@ -1030,93 +1043,135 @@ class DispatchPlan(NamedTuple):
     with ``chunk_iterations`` iterations a call; the normals k-NN in query
     blocks of ``knn_block`` rows (0: one call) and, with ``knn_grid``,
     through the grid k-NN cascade first. Every plan gives the same result
-    bit for bit."""
+    bit for bit. ``per_iter_s``, the card seconds of one iteration (0.0
+    off the card), is what the stall check holds each chunk to."""
 
     dispatch: str
     chunk_iterations: int
     knn_block: int = 0
     knn_grid: bool = False
+    per_iter_s: float = 0.0
 
 
-def _knn_block_rows(budget: float, knn_s: float, C: int) -> int:
-    """Rows of one k-NN query block of about half the budget, as the JAX
-    package sizes them: a multiple of 2048, at least 2048, at most C
-    rounded up to 2048."""
-    rows_per_budget = (budget * 0.5) / max(knn_s, 1e-9) * C
-    knn_block = max(2048, int(rows_per_budget) // 2048 * 2048)
-    return min(knn_block, -(-C // 2048) * 2048)
-
-
-def _plan_dispatch(cfg: IcpConfig, nf: int, nm: int, *, guarded: bool,
-                   has_normals: bool, gate_pairs: float,
-                   warm_requested: bool = False, obs=(None, None)) -> DispatchPlan:
-    """The dispatch plan of one registration, the JAX package's planner
-    with the card's rates (``device_policy.estimate_gpu_stage_seconds``).
-
-    ``guarded`` (``program_budget_s`` > 0 and the clouds on the card):
-    a registration estimated within the budget runs monolithic; above it,
-    "auto" runs chunked, K iterations a call from half the budget, the
-    normals k-NN in query blocks when the prologue would exceed 0.9 of the
-    budget, and through the grid k-NN cascade when the k-NN alone exceeds
-    half of it. A configuration whose largest indivisible step (the gate
-    with the grid build, one iteration, one 2048-row k-NN block) exceeds
-    0.9 of the budget raises ValueError, and so does an explicit
-    "monolithic" over the budget. ``cfg`` carries the grid matcher's
-    resolved cell cap; ``gate_pairs`` are the brute gate's pairs (0 for
-    the dilate and grid gates, and for "auto" above 2^40 pairs, which
-    resolves to one of them where a grid fits). Unguarded, "auto" is
-    monolithic and an explicit "chunked" without K takes 8 iterations a
-    call. ``obs`` (the observed values and weights) only silence the
-    warm-start hint."""
-    dispatch, chunk_k = cfg.dispatch, cfg.chunk_iterations
-    if not guarded:
-        return DispatchPlan("monolithic" if dispatch == "auto" else dispatch,
-                            chunk_k or 8)
-    budget = cfg.program_budget_s
-    C = cfg.correspondences
+def _card_stage_seconds(cfg: IcpConfig, nf: int, nm: int, *, has_normals: bool,
+                        ndev: int = 1, gate_pairs: float = 0.0):
+    """(gate, k-NN, grid build, one iteration) card seconds a device of
+    ``ndev``: the k-NN, the grid build and the brute matcher's sweep divide
+    over the devices, the grid matcher's gathers of the replicated queries
+    do not. ``gate_pairs`` are the brute gate's pairs a device."""
     gate_s, knn_s, build_s, per_iter_s = device_policy.estimate_gpu_stage_seconds(
-        nf, nm, correspondences=C, neighbors=cfg.neighbors, gate_pairs=gate_pairs,
-        match_method=cfg.match_method, match_cell_cap=cfg.match_cell_cap,
-        has_normals=has_normals,
+        nf, nm, correspondences=cfg.correspondences, neighbors=cfg.neighbors,
+        gate_pairs=gate_pairs, match_method=cfg.match_method,
+        match_cell_cap=cfg.match_cell_cap, has_normals=has_normals,
     )
+    if cfg.match_method != "grid":
+        per_iter_s /= ndev
+    return gate_s, knn_s / ndev, build_s / ndev, per_iter_s
+
+
+def _knn_plan(budget: float, prologue_s: float, knn_s: float, C: int):
+    """(atom_s, knn_block, knn_grid) of a k-NN of C queries in ``knn_s``
+    card seconds, in a prologue of ``prologue_s``, as the JAX package
+    splits it: ``atom_s`` its smallest block's seconds, of 2048 rows; one
+    call (0, False) within 0.9 of the budget, past it blocks of about half
+    the budget (a multiple of 2048 rows, at most C rounded up to one), and
+    the grid k-NN cascade first when the k-NN alone exceeds half of it."""
+    atom_s = min(knn_s, knn_s * 2048.0 / max(C, 1))
+    if prologue_s <= budget * 0.9:
+        return atom_s, 0, False
+    rows = int((budget * 0.5) / max(knn_s, 1e-9) * C) // 2048 * 2048
+    return atom_s, min(max(2048, rows), -(-C // 2048) * 2048), knn_s > budget * 0.5
+
+
+def _plan_dispatch(cfg: IcpConfig, nf: int, nm: int, *, device: torch.device,
+                   has_normals: bool, ndev: int = 1, match_cell_cap: Optional[int] = None,
+                   warm_requested: bool = False, obs=(None, None)) -> DispatchPlan:
+    """The dispatch plan of a registration on ``device`` over ``ndev``
+    devices (the mesh's size; 1 for ``icp_register``): the JAX package's
+    planners with the card's rates (``_card_stage_seconds``).
+
+    On the card the plan prices one iteration, and with
+    ``program_budget_s`` > 0 a run estimated over the budget goes chunked
+    ("auto"), K iterations a call from half the budget; on one device the
+    normals k-NN is then split (``_knn_plan``). A largest indivisible step
+    over 0.9 of the budget raises ValueError (on one device the gate with
+    the grid build, one iteration or one 2048-row k-NN block; over a mesh
+    the prologue, the k-NN in it, or one iteration), as does an explicit
+    "monolithic" over the budget. Off the card or without a budget, "auto"
+    is monolithic and "chunked" without K takes 8 iterations a call.
+
+    ``cfg`` is the resolved config; ``match_cell_cap``, the grid matcher's
+    resolved cell cap, replaces its own. Only the brute gate's pairs are
+    priced (the dilate and grid gates, and "auto" above 2^40 pairs, which
+    resolves to one of them where a grid fits, price none). ``obs`` (the
+    observed values and weights) only silence the warm-start hint of a
+    chunked run on one device."""
+    if match_cell_cap is not None:
+        cfg = dataclasses.replace(cfg, match_cell_cap=match_cell_cap)
+    dispatch, chunk_k, budget = cfg.dispatch, cfg.chunk_iterations, cfg.program_budget_s
+    if device.type != "cuda":
+        return DispatchPlan("monolithic" if dispatch == "auto" else dispatch, chunk_k or 8)
+    gate_pairs = (float(nf) * nm / ndev
+                  if cfg.overlap_enabled and cfg.gate_method == "brute" else 0.0)
+    gate_s, knn_s, build_s, per_iter_s = _card_stage_seconds(
+        cfg, nf, nm, has_normals=has_normals, ndev=ndev, gate_pairs=gate_pairs)
+    if budget <= 0:
+        return DispatchPlan("monolithic" if dispatch == "auto" else dispatch, chunk_k or 8,
+                            per_iter_s=per_iter_s)
+    C = cfg.correspondences
+    sharded = ndev > 1
+    scope, a_device = ("sharded ", " a device") if sharded else ("", "")
+    prologue_s = gate_s + knn_s + build_s
     # the monolithic run goes up to max_iterations; price the typical
     # converged count (healthy runs finish in about 10)
-    est = gate_s + knn_s + build_s + min(10, cfg.max_iterations) * per_iter_s
-    knn_atom_s = min(knn_s, knn_s * 2048.0 / max(C, 1))
-    atom_s = max(gate_s + build_s, per_iter_s, knn_atom_s)
+    est = prologue_s + min(10, cfg.max_iterations) * per_iter_s
+    knn_atom_s, knn_block, knn_grid = _knn_plan(budget, gate_s + build_s + knn_s, knn_s, C)
+    # over a mesh each device's k-NN is one step, of the prologue
+    atom_s = (max(prologue_s, per_iter_s) if sharded
+              else max(gate_s + build_s, per_iter_s, knn_atom_s))
     if atom_s > budget * 0.9:
+        steps, advice = (
+            (f"prologue ~{prologue_s:.3g} s",
+             "Use more devices, reduce `correspondences`, set a small `match_radius`, "
+             "or raise or disable (0) program_budget_s.") if sharded else
+            (f"gate ~{gate_s:.3g} s, grid build ~{build_s:.3g} s",
+             "Reduce `correspondences`, set a small `match_radius` (the grid matcher's "
+             "cells shrink with it), run on device='cpu', or raise or disable (0) "
+             "program_budget_s."))
         raise ValueError(
-            f"this configuration is estimated at ~{atom_s:.3g} s of card time "
-            f"for its largest indivisible step (gate ~{gate_s:.3g} s, grid "
-            f"build ~{build_s:.3g} s, ~{per_iter_s:.3g} s per iteration): even "
-            f"chunked dispatch would exceed program_budget_s={budget:g}. "
-            "Reduce `correspondences`, set a small `match_radius` (the grid "
-            "matcher's cells shrink with it), run on device='cpu', or raise "
-            "or disable (0) program_budget_s."
+            f"this {scope}configuration is estimated at ~{atom_s:.3g} s of card "
+            f"time{a_device} for its largest indivisible step ({steps}, "
+            f"~{per_iter_s:.3g} s per iteration): even chunked dispatch would "
+            f"exceed program_budget_s={budget:g}. {advice}"
         )
     if dispatch == "monolithic" and est > budget:
         raise ValueError(
-            f"this configuration is estimated at ~{est:.3g} s of card time in "
-            f"one monolithic run, over program_budget_s={budget:g}. Use "
-            "dispatch='auto' or 'chunked' (the same result in bounded "
-            "chunks), reduce `correspondences`, or raise or disable (0) "
-            "program_budget_s."
+            f"this {scope}configuration is estimated at ~{est:.3g} s of card "
+            f"time{a_device} in one monolithic run, over program_budget_s="
+            f"{budget:g}. Use dispatch='auto' or 'chunked' (the same result in "
+            "bounded chunks), "
+            + ("more devices" if sharded else "reduce `correspondences`")
+            + ", or raise or disable (0) program_budget_s."
         )
     if dispatch == "auto":
         dispatch = "monolithic" if est <= budget else "chunked"
-    knn_block, knn_grid = 0, False
-    if dispatch == "chunked":
-        if chunk_k == 0:
-            # half the budget a chunk
-            chunk_k = max(1, int((budget * 0.5) / max(per_iter_s, 1e-9)))
-        if gate_s + build_s + knn_s > budget * 0.9:
-            knn_block = _knn_block_rows(budget, knn_s, C)
-            knn_grid = knn_s > budget * 0.5
+    if dispatch == "chunked" and chunk_k == 0:
+        # half the budget a chunk
+        chunk_k = max(1, int((budget * 0.5) / max(per_iter_s, 1e-9)))
+    if dispatch != "chunked" or sharded:
+        knn_block, knn_grid = 0, False
+    k_text = f", K={chunk_k}" if dispatch == "chunked" else ""
+    if sharded:
+        _log.info(
+            "sharded dispatch plan: %s over %d devices (est %.1f s/device = gate "
+            "%.1f + knn %.1f + build %.1f + %.2f s/iter%s; budget %g s)",
+            dispatch, ndev, est, gate_s, knn_s, build_s, per_iter_s, k_text, budget,
+        )
+        return DispatchPlan(dispatch, chunk_k, per_iter_s=per_iter_s)
     _log.info(
         "dispatch plan: %s (est %.1f s = gate %.1f + knn %.1f + build "
         "%.1f + %.2f s/iter%s%s; budget %g s)",
-        dispatch, est, gate_s, knn_s, build_s, per_iter_s,
-        f", K={chunk_k}" if dispatch == "chunked" else "",
+        dispatch, est, gate_s, knn_s, build_s, per_iter_s, k_text,
         f", knn_block={knn_block}" if knn_block else "", budget,
     )
     if (dispatch == "chunked" and not warm_requested and per_iter_s > 1.0
@@ -1129,7 +1184,7 @@ def _plan_dispatch(cfg: IcpConfig, nf: int, nm: int, *, guarded: bool,
             "halves the iteration count at identical convergence "
             "basin.", per_iter_s,
         )
-    return DispatchPlan(dispatch, chunk_k, knn_block, knn_grid)
+    return DispatchPlan(dispatch, chunk_k, knn_block, knn_grid, per_iter_s)
 
 
 # Certificate margin of the grid k-NN cascade (knn_query_sorted's default).
@@ -1353,20 +1408,6 @@ _STALL_WAIT_SLEEP_S = 30.0
 _STALL_WAIT_BUDGET_S = 1800.0
 
 
-def _chunk_per_iter_estimate(cfg: IcpConfig, nf: int, nm: int,
-                             has_normals: bool, device: torch.device) -> float:
-    """Estimated card seconds of one iteration, for the stall check: 0.0
-    for a run on the CPU (no check there). Module-level, so that tests can
-    monkeypatch an estimate and drive the stall paths on the CPU."""
-    if device.type != "cuda":
-        return 0.0
-    return device_policy.estimate_gpu_stage_seconds(
-        nf, nm, correspondences=cfg.correspondences, neighbors=cfg.neighbors,
-        match_method=cfg.match_method, match_cell_cap=cfg.match_cell_cap,
-        has_normals=has_normals,
-    )[3]
-
-
 def _wait_for_healthy_window(log) -> float:
     """stall_policy="wait": block until the card answers a fresh-shape
     probe (``device_policy.probe_default_backend``, a subprocess, so a hung
@@ -1587,9 +1628,8 @@ def _plan_prepared_knn(cfg: IcpConfig, nf: int, dev: torch.device):
     if budget <= 0 or dev.type != "cuda":
         return 0, False
     C = cfg.correspondences
-    _, knn_s, _, _ = device_policy.estimate_gpu_stage_seconds(
-        nf, 1, correspondences=C, neighbors=cfg.neighbors, has_normals=False)
-    knn_atom_s = min(knn_s, knn_s * 2048.0 / max(C, 1))
+    knn_s = _card_stage_seconds(cfg, nf, 1, has_normals=False)[1]
+    knn_atom_s, knn_block, knn_grid = _knn_plan(budget, knn_s, knn_s, C)
     if knn_atom_s > budget * 0.9:
         raise ValueError(
             f"preparing this fixed cloud is estimated at ~{knn_atom_s:.3g} s "
@@ -1597,9 +1637,7 @@ def _plan_prepared_knn(cfg: IcpConfig, nf: int, dev: torch.device):
             f"program_budget_s={budget:g}. Reduce `neighbors`, prepare on "
             "device='cpu', or raise or disable (0) program_budget_s."
         )
-    if knn_s <= budget * 0.9:
-        return 0, False
-    return _knn_block_rows(budget, knn_s, C), knn_s > budget * 0.5
+    return knn_block, knn_grid
 
 
 def _same_device(t: torch.Tensor, dev: torch.device) -> bool:
@@ -1748,31 +1786,20 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
                 planarity_mov=planarity_mov, device=dev, dtype=dtype,
             )
 
-        zeros6 = torch.zeros(6, dtype=dtype, device=dev)
-        obs_vals = (zeros6 if rbp_observed_values is None
-                    else _as_tensor(rbp_observed_values, dtype, dev))
-        obs_w = (zeros6 if rbp_observation_weights is None
-                 else _as_tensor(rbp_observation_weights, dtype, dev))
-
-        H0 = rbp_to_H(obs_vals)
-        nf, nm = Xf.shape[0], Xm.shape[0]
-        has_normals = normals_fix is not None or fixed_prep is not None
+        obs_vals, obs_w, H0 = _observed(rbp_observed_values, rbp_observation_weights, (),
+                                        dtype, dev)
         # The grid matcher's cell list is built once, before the planner
         # prices an iteration with its cap; every iteration and chunk queries it.
         match_grid = _match_grid(Xm, cfg, mov_host) if cfg.match_method == "grid" else None
-        plan_cfg = (cfg if match_grid is None
-                    else dataclasses.replace(cfg, match_cell_cap=match_grid[1]))
         if plan is None:
             plan = _plan_dispatch(
-                plan_cfg, nf, nm, guarded=cfg.program_budget_s > 0 and dev.type == "cuda",
-                has_normals=has_normals,
-                gate_pairs=(float(nf) * nm
-                            if cfg.overlap_enabled and cfg.gate_method == "brute" else 0.0),
+                cfg, Xf.shape[0], Xm.shape[0], device=dev,
+                has_normals=normals_fix is not None or fixed_prep is not None,
+                match_cell_cap=None if match_grid is None else match_grid[1],
                 warm_requested=warm_requested,
                 obs=(rbp_observed_values, rbp_observation_weights),
             )
         chunked = plan.dispatch == "chunked"
-        per_iter_est = _chunk_per_iter_estimate(plan_cfg, nf, nm, has_normals, dev)
     # The gate sees the pair itself; the stages after it and the loop are
     # the batch's, on a batch of one.
     Xf1, Xm1 = Xf[None], Xm[None]
@@ -1809,7 +1836,7 @@ def _icp_register(X_fix, X_mov, cfg: IcpConfig, *, rbp_observed_values,
             plan.chunk_iterations if chunked else cfg.max_iterations,
             lambda c, hi: run_icp_loop(*loop_args, mov_planarity_fn=mov_planarity_fn,
                                        carry_in=c, it_hi=hi),
-            cfg=cfg, per_iter_est=per_iter_est,
+            cfg=cfg, per_iter_est=plan.per_iter_s,
         )
     with span("icp.finish"):
         uncertainties, covariance = _uncertainties(
@@ -1894,12 +1921,8 @@ def icp_register_batch(
             if cfg.overlap_enabled and cfg.gate_method == "auto":
                 cfg = dataclasses.replace(cfg, gate_method="brute")
 
-            zeros = torch.zeros((B, 6), dtype=dtype, device=dev)
-            obs_vals = (zeros if rbp_observed_values is None
-                        else _as_tensor(rbp_observed_values, dtype, dev))
-            obs_w = (zeros if rbp_observation_weights is None
-                     else _as_tensor(rbp_observation_weights, dtype, dev))
-            H0 = rbp_to_H(obs_vals)
+            obs_vals, obs_w, H0 = _observed(rbp_observed_values, rbp_observation_weights,
+                                            (B,), dtype, dev)
         sel_idx, sel_valid, error0 = _gate_select_stages(Xf, Xm, H0, cfg=cfg)
         with span("icp.normals"):
             Q = _rows(Xf, sel_idx)

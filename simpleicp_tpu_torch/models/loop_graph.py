@@ -18,10 +18,10 @@ pay no capture and keep no buffers on the card. The cache keeps
 event orders each user's work after the last one's, whatever streams they
 launch on.
 
-The kernel wrappers count their launches (``knn_cuda.LAUNCHES``,
-``solver_cuda.LAUNCHES``) when Python calls them. A capture runs the body's
-Python without launching anything, so it leaves those counts as it found
-them, and each replay adds what its graph launches.
+The kernel wrappers count their launches (``ops.LAUNCH_COUNTERS``) when
+Python calls them. A capture runs the body's Python without launching
+anything, so it leaves those counts as it found them, and each replay adds
+what its graph launches.
 """
 
 from __future__ import annotations
@@ -33,14 +33,12 @@ from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
-from ..ops import knn_cuda, solver_cuda
+from ..ops import LAUNCH_COUNTERS
 from ..utils.profiling import recording
 
 # Keys a device kept at once. Each entry holds static copies of one
 # registration's inputs, its movable cloud among them, and its loop state.
 ENTRIES = 4
-
-_COUNTERS = (knn_cuda.LAUNCHES, solver_cuda.LAUNCHES)
 
 # Keys a device noted on their first sighting, least recently seen out.
 SEEN = 64
@@ -103,15 +101,15 @@ class Graphed:
 def _capture(device: torch.device, body: Callable[[], None]):
     """(the CUDA graph of ``body``, the launches a replay of it makes by
     counter), the counters left as they were."""
-    before = [dict(c) for c in _COUNTERS]
+    before = [dict(c) for c in LAUNCH_COUNTERS]
     graph = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.device(device), torch.cuda.graph(graph, capture_error_mode="thread_local"):
             body()
         launched = [(c, {k: c[k] - b[k] for k in c if c[k] != b[k]})
-                    for c, b in zip(_COUNTERS, before)]
+                    for c, b in zip(LAUNCH_COUNTERS, before)]
     finally:
-        for c, b in zip(_COUNTERS, before):
+        for c, b in zip(LAUNCH_COUNTERS, before):
             c.update(b)
     return graph, launched
 

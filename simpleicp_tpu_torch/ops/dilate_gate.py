@@ -337,9 +337,6 @@ def classify_queries(Xf: torch.Tensor, Xm0: torch.Tensor, *, plan: DilatePlan):
 
 # ------------------------------------------------------------ band resolution
 
-# Largest number of (query, ref) pairs one exact sweep call takes; larger
-# sweeps are split over the queries.
-_SWEEP_PAIR_BUDGET = 1 << 42
 # Band x kept-ref products above this run the blocked 2-D slab join instead
 # of one sweep: a ref farther than the radius along ONE axis cannot satisfy
 # d2 <= r^2, so restricting each block of band points to the refs within
@@ -484,23 +481,15 @@ def _compact_refs(band_q: torch.Tensor, Xm0: torch.Tensor,
     return _bit_test(poss, widx, bit)
 
 
-def _chunked_min_d2(Xf: torch.Tensor, q_idx: torch.Tensor, Xm0: torch.Tensor,
-                    ref_idx: Optional[torch.Tensor], info: dict) -> torch.Tensor:
+def _direct_min_d2(Xf: torch.Tensor, q_idx: torch.Tensor, Xm0: torch.Tensor,
+                   ref_idx: Optional[torch.Tensor], info: dict) -> torch.Tensor:
     """min_dist_sq of the indexed fixed points against the (indexed)
-    transformed movable points, in query chunks of at most
-    _SWEEP_PAIR_BUDGET pairs; the sweep's counts go into ``info``."""
+    transformed movable points, one launch (``_resolve_band`` calls it at
+    most _DIRECT_SWEEP_MAX pairs); the sweep's counts go into ``info``."""
     R = Xm0 if ref_idx is None else Xm0[ref_idx]
-    chunk = q_idx.shape[0]
-    while chunk > 1024 and chunk * R.shape[0] > _SWEEP_PAIR_BUDGET:
-        chunk //= 2
-    chunk = max(1, chunk)
-    launches = -(-q_idx.shape[0] // chunk)
-    info.update(sweep_launches=launches, sweep_pairs=q_idx.shape[0] * R.shape[0],
-                sweep_queries=q_idx.shape[0], sweep_refs=launches * R.shape[0])
-    return torch.cat([
-        min_dist_sq(Xf[q_idx[s:s + chunk]], R)
-        for s in range(0, q_idx.shape[0], chunk)
-    ])
+    info.update(sweep_launches=1, sweep_pairs=q_idx.shape[0] * R.shape[0],
+                sweep_queries=q_idx.shape[0], sweep_refs=R.shape[0])
+    return min_dist_sq(Xf[q_idx], R)
 
 
 class _SlabBlocks(NamedTuple):
@@ -697,7 +686,7 @@ def _resolve_band(Xf, Xm0, radius: float, plan: DilatePlan, in_mask: torch.Tenso
             mark("sweep")
     else:
         with span("icp.gate_sweep"):
-            out[band_idx] = _chunked_min_d2(Xf, band_idx, Xm0, ref_idx, info) <= r2
+            out[band_idx] = _direct_min_d2(Xf, band_idx, Xm0, ref_idx, info) <= r2
             info.update(sweep="direct")
             mark("sweep")
     _log.debug("dilate gate: %s sweep, %d band points x %d refs",

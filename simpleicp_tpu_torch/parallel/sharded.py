@@ -27,11 +27,13 @@ collectives:
   * rows at global indices (``_gather_rows``): the owner contributes the
     row, the others zeros, one sum.
 
-The loop, the solver and the convergence test are the single-card ones
-(``models.icp.run_icp_loop`` and ``_run_chunked``) on the replicated state,
-so every rank reads the same stop flag, and the result equals
-``icp_register``'s bit for bit: every distance is the same per-pair
-arithmetic, every minimum is exact and every tie goes to the lower index.
+The dispatch plan is the single-card planner's over the mesh's size
+(``models.icp._plan_dispatch``). The loop, the solver and the convergence
+test are the single-card ones (``models.icp.run_icp_loop`` and
+``_run_chunked``) on the replicated state, so every rank reads the same
+stop flag, and the result equals ``icp_register``'s bit for bit: every
+distance is the same per-pair arithmetic, every minimum is exact and every
+tie goes to the lower index.
 
 Backends: NCCL between cards (one card a rank), gloo between CPU processes.
 gloo takes no CUDA tensor, so ranks on cards over gloo (two ranks sharing
@@ -42,7 +44,6 @@ memory; ``Mesh.counts`` counts the collectives and the staged bytes.
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import Optional, Union
 
 import numpy as np
@@ -61,6 +62,8 @@ from ..models.icp import (
     _compacted,
     _first,
     _initial_moved_host,
+    _observed,
+    _plan_dispatch,
     _resolve_engines,
     _resolve_gate,
     _result_from_carry,
@@ -78,13 +81,10 @@ from ..ops.dilate_gate import bbox_of, overlap_mask_dilate
 from ..ops.gridhash import build_sorted_grid, grid_cell_cap, grid_query_sorted
 from ..ops.knn import knn_search, match_transform, min_dist_sq
 from ..ops.normals import estimate_normals_from_neighborhoods
-from ..ops.transform import apply_H, rbp_to_H
-from ..utils import device_policy
+from ..ops.transform import apply_H
 from ..utils.device import resolve
 from ..utils.sync import read_array
 from .mesh import Mesh, make_mesh
-
-_log = logging.getLogger(__name__)
 
 _SUM, _MIN, _MAX = dist.ReduceOp.SUM, dist.ReduceOp.MIN, dist.ReduceOp.MAX
 
@@ -473,65 +473,6 @@ def _match_fns(comm: _Comm, cfg: IcpConfig, Q, Xm_l, lo_m: int, match_grid):
     return match_fn, gather_fn
 
 
-def _plan_sharded(cfg: IcpConfig, nf: int, nm: int, ndev: int, *, guarded: bool,
-                  has_normals: bool, gate_pairs: float):
-    """(dispatch, chunk iterations) of a sharded run: the JAX package's
-    sharded planner with the card's rates (``estimate_gpu_stage_seconds``)
-    per device. The k-NN and the grid build divide over the mesh, the brute
-    matcher's sweep too (each rank sweeps its block), the grid matcher's
-    per-iteration gathers do not (the queries are replicated);
-    ``gate_pairs`` are the brute gate's pairs a device. Guarded
-    (``program_budget_s`` > 0 on the card): a run over the budget runs
-    chunked, K iterations a call from half the budget; a largest
-    indivisible program (the prologue, or one iteration) over 0.9 of the
-    budget raises ValueError, as does an explicit "monolithic" over it.
-    Unguarded, "auto" is monolithic and "chunked" without K takes 8."""
-    dispatch, chunk_k = cfg.dispatch, cfg.chunk_iterations
-    if not guarded:
-        return ("monolithic" if dispatch == "auto" else dispatch), chunk_k or 8
-    budget = cfg.program_budget_s
-    gate_s, knn_s, build_s, per_iter_s = device_policy.estimate_gpu_stage_seconds(
-        nf, nm, correspondences=cfg.correspondences, neighbors=cfg.neighbors,
-        gate_pairs=gate_pairs, match_method=cfg.match_method,
-        match_cell_cap=cfg.match_cell_cap, has_normals=has_normals,
-    )
-    knn_s /= ndev
-    build_s /= ndev
-    if cfg.match_method != "grid":
-        per_iter_s /= ndev
-    prologue_s = gate_s + knn_s + build_s
-    est = prologue_s + min(10, cfg.max_iterations) * per_iter_s
-    atom_s = max(prologue_s, per_iter_s)
-    if atom_s > budget * 0.9:
-        raise ValueError(
-            f"this sharded configuration is estimated at ~{atom_s:.3g} s of card "
-            f"time a device for its largest indivisible step (prologue "
-            f"~{prologue_s:.3g} s, ~{per_iter_s:.3g} s per iteration): even "
-            f"chunked dispatch would exceed program_budget_s={budget:g}. Use "
-            "more devices, reduce `correspondences`, set a small `match_radius`, "
-            "or raise or disable (0) program_budget_s."
-        )
-    if dispatch == "monolithic" and est > budget:
-        raise ValueError(
-            f"this sharded configuration is estimated at ~{est:.3g} s of card "
-            f"time a device in one monolithic run, over program_budget_s="
-            f"{budget:g}. Use dispatch='auto' or 'chunked' (the same result in "
-            "bounded chunks), more devices, or raise or disable (0) "
-            "program_budget_s."
-        )
-    if dispatch == "auto":
-        dispatch = "monolithic" if est <= budget else "chunked"
-    if dispatch == "chunked" and chunk_k == 0:
-        chunk_k = max(1, int((budget * 0.5) / max(per_iter_s, 1e-9)))
-    _log.info(
-        "sharded dispatch plan: %s over %d devices (est %.1f s/device = gate %.1f "
-        "+ knn %.1f + build %.1f + %.2f s/iter%s; budget %g s)",
-        dispatch, ndev, est, gate_s, knn_s, build_s, per_iter_s,
-        f", K={chunk_k}" if dispatch == "chunked" else "", budget,
-    )
-    return dispatch, chunk_k
-
-
 _GATE_CODES = ("brute", "grid", "dilate", "refused")
 
 
@@ -692,12 +633,8 @@ def _icp_register_sharded(X_fix, X_mov, cfg: IcpConfig, *, mesh, rbp_observed_va
         rbp_observed_values = read_array(comm.broadcast(vals, 0))
         cfg = dataclasses.replace(cfg, warm_start=False)
 
-    zeros6 = torch.zeros(6, dtype=dtype, device=dev)
-    obs_vals = (zeros6 if rbp_observed_values is None
-                else _as_tensor(rbp_observed_values, dtype, dev))
-    obs_w = (zeros6 if rbp_observation_weights is None
-             else _as_tensor(rbp_observation_weights, dtype, dev))
-    H0 = rbp_to_H(obs_vals)
+    obs_vals, obs_w, H0 = _observed(rbp_observed_values, rbp_observation_weights, (),
+                                    dtype, dev)
 
     lo_f, hi_f = _block(nf, n, me)
     lo_m, hi_m = _block(nm, n, me)
@@ -709,17 +646,12 @@ def _icp_register_sharded(X_fix, X_mov, cfg: IcpConfig, *, mesh, rbp_observed_va
     Xf_l = _as_tensor(X_fix[lo_f:hi_f], dtype, dev)
     Xm_l = _as_tensor(X_mov[lo_m:hi_m], dtype, dev)
 
-    has_normals = normals_fix is not None or fixed_prep is not None
     match_grid = (_match_grid(comm, cfg, Xm_l, mov_host)
                   if cfg.match_method == "grid" else None)
-    plan_cfg = (cfg if match_grid is None
-                else dataclasses.replace(cfg, match_cell_cap=match_grid[2]))
-    dispatch, chunk_k = _plan_sharded(
-        plan_cfg, nf, nm, n,
-        guarded=cfg.program_budget_s > 0 and dev.type == "cuda",
-        has_normals=has_normals,
-        gate_pairs=(float(nf) * nm / n
-                    if cfg.overlap_enabled and cfg.gate_method == "brute" else 0.0),
+    plan = _plan_dispatch(
+        cfg, nf, nm, device=dev, ndev=n,
+        has_normals=normals_fix is not None or fixed_prep is not None,
+        match_cell_cap=None if match_grid is None else match_grid[2],
     )
 
     if fixed_prep is None:
@@ -754,7 +686,7 @@ def _icp_register_sharded(X_fix, X_mov, cfg: IcpConfig, *, mesh, rbp_observed_va
     comm.stage = "loop"
     final = _run_chunked(
         make_carry_init(cfg, dtype, obs_vals[None], H0[None], error0),
-        chunk_k if dispatch == "chunked" else cfg.max_iterations,
+        plan.chunk_iterations if plan.dispatch == "chunked" else cfg.max_iterations,
         lambda c, hi: run_icp_loop(*loop_args, mov_planarity_fn=mov_planarity_fn,
                                    carry_in=c, it_hi=hi),
         cfg=cfg, per_iter_est=0.0,

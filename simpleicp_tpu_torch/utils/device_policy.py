@@ -4,8 +4,9 @@ CLI's size-based device routing.
 The port's copy of the JAX package's ``utils/device_policy.py``, under its
 names, with the card's own rates. Two users:
 
-  * the dispatch planner of ``icp_register`` and ``prepare_fixed``
-    (``models/icp.py`` ``_plan_dispatch``): ``estimate_gpu_stage_seconds``
+  * the dispatch planner of ``icp_register``, ``icp_register_sharded``
+    and ``prepare_fixed`` (``models/icp.py`` ``_plan_dispatch``,
+    ``_card_stage_seconds``): ``estimate_gpu_stage_seconds``
     prices the gate, the normals k-NN, the grid matcher's build and one
     iteration in card seconds, against ``IcpConfig.program_budget_s``;
   * the CLI's ``--device auto`` (``resolve_device``): a registration whose

@@ -263,6 +263,35 @@ def _jax_plan_line(monkeypatch, caplog, X_fix, X_mov, cfg):
             if r.getMessage().startswith("dispatch plan:")]
 
 
+def _jax_sharded_plan_line(monkeypatch, caplog, X_fix, X_mov, cfg, ndev):
+    """The JAX sharded planner's "sharded dispatch plan:" line (or its
+    ValueError) over a mesh of ndev CPU devices, with the TPU backend faked
+    and the run stopped right after the plan (at the first placement of a
+    cloud on the mesh)."""
+    import jax
+
+    from simpleicp_tpu.parallel import sharded as jax_sharded
+    from simpleicp_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    def stop(*a, **k):
+        raise _Planned
+
+    mesh = jax_mesh(ndev)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax_sharded, "_put_sharded", stop)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, "simpleicp_tpu.parallel.sharded"):
+        try:
+            jax_sharded.icp_register_sharded(X_fix, X_mov, cfg, mesh=mesh, dtype=jnp.float64)
+        except _Planned:
+            pass
+    monkeypatch.undo()
+    return [r.getMessage() for r in caplog.records
+            if r.getMessage().startswith("sharded dispatch plan:")]
+
+
+CARD = torch.device("cuda")
+
 PLANS = {
     "monolithic": (dict(program_budget_s=5.0), "monolithic", 0, 0, False),
     "chunked": (dict(program_budget_s=3.0), "chunked", 7, 0, False),
@@ -285,10 +314,11 @@ def test_plan_dispatch_equals_jax(name, monkeypatch, caplog):
     caplog.clear()
     with caplog.at_level(logging.INFO, _LOG):
         plan = icp._plan_dispatch(IcpConfig(correspondences=4096, match_method="brute", **kw),
-                                  5000, 5000, guarded=True, has_normals=False, gate_pairs=0.0)
+                                  5000, 5000, device=CARD, has_normals=False)
     port_lines = [r.getMessage() for r in caplog.records if r.name == _LOG]
     assert port_lines == jax_lines and len(port_lines) == 1
-    assert plan == icp.DispatchPlan(dispatch, K if dispatch == "chunked" else 0, blk, grid)
+    assert plan == icp.DispatchPlan(dispatch, K if dispatch == "chunked" else 0, blk, grid,
+                                    4096 * 5000 / 1e8)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -306,18 +336,92 @@ def test_plan_dispatch_refusals(kw, match, monkeypatch, caplog):
     _equal_rates(monkeypatch)
     with pytest.raises(ValueError, match=match):
         icp._plan_dispatch(IcpConfig(correspondences=4096, match_method="brute", **kw),
-                           5000, 5000, guarded=True, has_normals=False, gate_pairs=0.0)
+                           5000, 5000, device=CARD, has_normals=False)
 
 
 def test_plan_dispatch_unguarded():
     """On the CPU (unguarded) "auto" is monolithic, and an explicit
     "chunked" without K takes 8 iterations a chunk."""
-    cfg = IcpConfig(program_budget_s=1e-9)
-    assert icp._plan_dispatch(cfg, 10**7, 10**7, guarded=False, has_normals=False,
-                              gate_pairs=1e14) == icp.DispatchPlan("monolithic", 8)
+    cfg = IcpConfig(program_budget_s=1e-9, max_overlap_distance=1.0, gate_method="brute")
+    cpu = torch.device("cpu")
+    assert icp._plan_dispatch(cfg, 10**7, 10**7, device=cpu,
+                              has_normals=False) == icp.DispatchPlan("monolithic", 8)
     assert icp._plan_dispatch(dataclasses.replace(cfg, dispatch="chunked"), 10, 10,
-                              guarded=False, has_normals=False,
-                              gate_pairs=0.0) == icp.DispatchPlan("chunked", 8)
+                              device=cpu, has_normals=False) == icp.DispatchPlan("chunked", 8)
+
+
+# 4096 x 5000 points at the rates _equal_rates sets: k-NN 2.048 s, 0.2048 s
+# an iteration of the brute matcher and 0.1228 s of the grid matcher at a
+# cell cap of 37, on one device; and 8192 x 10 000 points: k-NN 8.192 s.
+SHARDED_PLANS = {
+    # halved, the brute run fits 3 s in one piece (one device: chunked)
+    "brute": (5000, dict(program_budget_s=3.0), None),
+    # the grid matcher's iteration is not divided over the mesh
+    "grid": (5000, dict(program_budget_s=2.0, match_method="grid", match_radius=0.3,
+                        match_cell_cap=37), None),
+    "explicit_k": (5000, dict(program_budget_s=2.0, chunk_iterations=3), None),
+    # the k-NN is one step a device (4.1 s > 0.9 x 4 s), where one device
+    # runs 2048-row blocks of 2.0 s
+    "prologue_refused": (10_000, dict(correspondences=8192, program_budget_s=4.0),
+                         "largest indivisible step"),
+    "monolithic_refused": (5000, dict(program_budget_s=2.0, dispatch="monolithic"),
+                           "one monolithic run"),
+}
+
+
+@pytest.mark.parametrize("name", list(SHARDED_PLANS))
+def test_plan_sharded_equals_jax(name, monkeypatch, caplog):
+    """Over a mesh of 2 (``ndev``) the planner takes the JAX sharded
+    planner's decisions, logs its line and refuses where it refuses, under
+    equal rates: no k-NN blocks, no cascade, and the k-NN, the grid build
+    and the brute iteration priced a device."""
+    n, kw, refusal = SHARDED_PLANS[name]
+    kw = {"correspondences": 4096, "match_method": "brute", **kw}
+    X_fix, X_mov = _pair(919, n=n)
+    _equal_rates(monkeypatch)
+    if refusal:
+        jax_refusal = {"largest indivisible step": "largest indivisible program",
+                       "one monolithic run": "in ONE program"}[refusal]
+        with pytest.raises(ValueError, match=f"this sharded configuration .*{jax_refusal}"):
+            _jax_sharded_plan_line(monkeypatch, caplog, X_fix, X_mov, JaxConfig(**kw), 2)
+        _equal_rates(monkeypatch)
+        with pytest.raises(ValueError, match=f"this sharded configuration .*{refusal}"):
+            icp._plan_dispatch(IcpConfig(**kw), n, n, device=CARD, ndev=2, has_normals=False)
+        if name == "prologue_refused":
+            one = icp._plan_dispatch(IcpConfig(**kw), n, n, device=CARD, has_normals=False)
+            assert (one.dispatch, one.knn_block, one.knn_grid) == ("chunked", 2048, True)
+        return
+    jax_lines = _jax_sharded_plan_line(monkeypatch, caplog, X_fix, X_mov, JaxConfig(**kw), 2)
+    _equal_rates(monkeypatch)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, _LOG):
+        plan = icp._plan_dispatch(IcpConfig(**kw), n, n, device=CARD, ndev=2,
+                                  has_normals=False)
+        one = icp._plan_dispatch(IcpConfig(**kw), n, n, device=CARD, has_normals=False)
+    port_lines = [r.getMessage() for r in caplog.records if r.name == _LOG]
+    assert port_lines[:1] == jax_lines and len(jax_lines) == 1
+    assert port_lines[0].startswith("sharded dispatch plan: ")
+    assert " over 2 devices (" in port_lines[0] and " knn 1.0 + " in port_lines[0]
+    assert (plan.knn_block, plan.knn_grid) == (0, False)
+    grid = kw["match_method"] == "grid"
+    assert plan.per_iter_s == one.per_iter_s / (1 if grid else 2)
+    if name == "brute":
+        assert (plan.dispatch, one.dispatch) == ("monolithic", "chunked")
+
+
+@pytest.mark.parametrize("match", ["brute", "grid"])
+def test_sharded_stage_seconds_divide_over_the_mesh(match):
+    """A device's share of the k-NN, the grid build and (brute matcher) the
+    iteration over a mesh of ``ndev``; the gate's pairs come a device."""
+    cfg = IcpConfig(correspondences=4096, match_method=match, match_radius=0.3,
+                    match_cell_cap=37)
+    one = icp._card_stage_seconds(cfg, 10**6, 10**6, has_normals=False, gate_pairs=1e12)
+    for ndev in (2, 3):
+        per_dev = icp._card_stage_seconds(cfg, 10**6, 10**6, has_normals=False,
+                                          ndev=ndev, gate_pairs=1e12)
+        assert per_dev == (one[0], one[1] / ndev, one[2] / ndev,
+                           one[3] if match == "grid" else one[3] / ndev)
+    assert one[1] > 0 and (one[2] > 0) == (match == "grid") and one[3] > 0
 
 
 def test_prepare_fixed_split_knn_bitequal(monkeypatch, caplog):
@@ -371,24 +475,29 @@ def test_chunk_stall_warning(monkeypatch, caplog):
     """A chunk far over its estimate warns of a degraded window; a chunk
     within the margins does not."""
     X_fix, X_mov, cfg = _stall_args()
-    monkeypatch.setattr(icp, "_chunk_per_iter_estimate", lambda *a, **k: 1.0)
+    plan = icp.DispatchPlan("chunked", 2, per_iter_s=1.0)
     with caplog.at_level(logging.WARNING, logger=_LOG):
-        _run(X_fix, X_mov, _chunked(cfg, 2))
+        _run(X_fix, X_mov, _chunked(cfg, 2), plan=plan)
     assert not [r for r in caplog.records if "degraded window" in r.getMessage()]
     monkeypatch.setattr(icp, "_STALL_FACTOR", 0.0)
     monkeypatch.setattr(icp, "_STALL_SLACK_S", 0.0)
     monkeypatch.setattr(icp, "_STALL_MIN_EST_S", 0.0)
     with caplog.at_level(logging.WARNING, logger=_LOG):
-        res, _ = _run(X_fix, X_mov, _chunked(cfg, 2))
+        res, _ = _run(X_fix, X_mov, _chunked(cfg, 2), plan=plan)
     assert int(res.error_code) == 0
     assert [r for r in caplog.records if "degraded window" in r.getMessage()]
 
 
 def test_chunk_stall_estimate_is_zero_on_the_cpu():
-    assert icp._chunk_per_iter_estimate(IcpConfig(), 10**6, 10**6, False,
-                                        torch.device("cpu")) == 0.0
-    assert icp._chunk_per_iter_estimate(IcpConfig(), 10**6, 10**6, False,
-                                        torch.device("cuda")) > 0.0
+    """The plan's iteration estimate, which the stall check reads: 0.0 on
+    the CPU (no check there), priced on the card with or without a
+    budget."""
+    for budget in (30.0, 0.0):
+        cfg = IcpConfig(program_budget_s=budget)
+        assert icp._plan_dispatch(cfg, 10**6, 10**6, device=torch.device("cpu"),
+                                  has_normals=False).per_iter_s == 0.0
+        assert icp._plan_dispatch(cfg, 10**6, 10**6, device=CARD,
+                                  has_normals=False).per_iter_s > 0.0
 
 
 def test_stall_wait_budget_exhaustion(monkeypatch, caplog):
@@ -421,7 +530,7 @@ def test_chunk_stall_policy_wait(monkeypatch, caplog):
     """stall_policy='wait' holds the next chunk until a probe answers ok
     (retrying a failed one), logs the wait, and changes no result."""
     X_fix, X_mov, cfg = _stall_args()
-    monkeypatch.setattr(icp, "_chunk_per_iter_estimate", lambda *a, **k: 1.0)
+    plan = icp.DispatchPlan("chunked", 1, per_iter_s=1.0)
     for name, v in (("_STALL_FACTOR", 0.0), ("_STALL_SLACK_S", 0.0),
                     ("_STALL_MIN_EST_S", 0.0), ("_STALL_WAIT_SLEEP_S", 0.0),
                     ("_STALL_WAIT_PROBE_TIMEOUT_S", 0.0), ("_STALL_WAIT_BUDGET_S", 30.0)):
@@ -434,7 +543,8 @@ def test_chunk_stall_policy_wait(monkeypatch, caplog):
 
     monkeypatch.setattr(device_policy, "probe_default_backend", fake_probe)
     with caplog.at_level(logging.INFO, logger=_LOG):
-        wait = _run(X_fix, X_mov, _chunked(dataclasses.replace(cfg, stall_policy="wait"), 1))
+        wait = _run(X_fix, X_mov, _chunked(dataclasses.replace(cfg, stall_policy="wait"), 1),
+                    plan=plan)
     assert int(wait[0].error_code) == 0
     assert len(probes) >= 2 and len(probes) % 2 == 0, probes
     msgs = [r.getMessage() for r in caplog.records]
@@ -442,6 +552,6 @@ def test_chunk_stall_policy_wait(monkeypatch, caplog):
     assert any("cumulative stall-wait" in m for m in msgs)
     assert any("total stall-wait" in m for m in msgs)
     probes.clear()
-    warn = _run(X_fix, X_mov, _chunked(cfg, 1))
+    warn = _run(X_fix, X_mov, _chunked(cfg, 1), plan=plan)
     assert not probes
     _assert_bitequal(wait, warn)

@@ -173,17 +173,6 @@ def test_band_ref_compaction(monkeypatch, with_transform):
     assert stats["sweep"] == "direct"
 
 
-def test_direct_sweep_chunks_under_a_pair_budget(monkeypatch):
-    monkeypatch.setattr(T, "_SWEEP_PAIR_BUDGET", 1 << 16)
-    rng = np.random.default_rng(114)
-    Xf = rng.uniform(-1, 1, size=(6000, 3))
-    Xm = rng.uniform(-1, 1, size=(3000, 3))
-    Xft, Xmt = torch.from_numpy(Xf), torch.from_numpy(Xm)
-    plan = T.plan_dilate_gate(None, Xm, 0.3, cell_div=2)
-    mask = T.overlap_mask_dilate(Xft, Xmt, 0.3, plan)
-    assert torch.equal(mask, min_dist_sq(Xft, Xmt) <= torch.tensor(0.3, dtype=torch.float64) ** 2)
-
-
 def test_slab_planner_edge_cases(monkeypatch):
     """_pick_slab_chunk_2d survives degenerate geometry as the JAX one does,
     and with the same rates and no per-launch cost it picks what the JAX

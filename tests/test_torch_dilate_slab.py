@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from simpleicp_tpu.ops.transform import rbp_to_H as jax_rbp_to_H
-from test_torch_dilate_gate import _check, _force
+from test_torch_dilate_gate import J, _check, _force
 from test_torch_dilate_gate import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 
@@ -38,7 +38,8 @@ def test_slab_join_multi_call(monkeypatch):
     """The JAX package splits the blocks over several calls under a tiny
     pair budget; the port launches one sweep per block either way."""
     _force(monkeypatch, _DIRECT_SWEEP_MAX=1, _SLAB_SWEEP_MIN=1,
-           _SLAB_CHUNK_OPTS=(128, 512), _SLAB1_MIN=32, _SWEEP_PAIR_BUDGET=1 << 16)
+           _SLAB_CHUNK_OPTS=(128, 512), _SLAB1_MIN=32)
+    monkeypatch.setattr(J, "_SWEEP_PAIR_BUDGET", 1 << 16)
     rng = np.random.default_rng(112)
     Xf = rng.uniform(-1, 1, size=(5000, 3)) * np.array([5.0, 2.0, 1.0])
     Xm = rng.uniform(-1, 1, size=(4000, 3)) * np.array([5.0, 2.0, 1.0])
@@ -50,7 +51,8 @@ def test_slab_join_multi_call(monkeypatch):
 
 def test_slab_join_skewed_density(monkeypatch):
     _force(monkeypatch, _DIRECT_SWEEP_MAX=1, _SLAB_SWEEP_MIN=1,
-           _SLAB_CHUNK_OPTS=(256,), _SLAB1_MIN=16, _SWEEP_PAIR_BUDGET=1 << 15)
+           _SLAB_CHUNK_OPTS=(256,), _SLAB1_MIN=16)
+    monkeypatch.setattr(J, "_SWEEP_PAIR_BUDGET", 1 << 15)
     rng = np.random.default_rng(113)
     dense = rng.normal(0.0, 0.03, size=(2500, 3)) + np.array([3.0, 0.2, 0.0])
     sparse = rng.uniform(-1, 1, size=(1500, 3)) * np.array([4.0, 1.0, 1.0])
