@@ -811,7 +811,8 @@ def traced(torch, fn):
 def counted_run(torch, X_fix, X_mov, dtype, gate=None, gate_launches=None):
     """One registration on the card with every count set to 0 just before
     and read just after: one k-NN launch, one match launch and one
-    Gauss-Newton solve launch per iteration, and the gate's launches
+    Gauss-Newton solve launch per iteration, one uncertainty launch, and the
+    gate's launches
     (``gate_launches``; by default one 1-NN launch in the d2-only mode when
     gated, none otherwise; never the index mode)."""
     from simpleicp_tpu_torch.ops import solver_cuda
@@ -821,6 +822,8 @@ def counted_run(torch, X_fix, X_mov, dtype, gate=None, gate_launches=None):
     n_it = int(res.n_iterations)
     check(solver_cuda.LAUNCHES["gn_solve"] == n_it,
           f"solve kernel launches {solver_cuda.LAUNCHES['gn_solve']}, expected {n_it}")
+    check(solver_cuda.LAUNCHES["uncertainties"] == 1,
+          f"uncertainty kernel launches {solver_cuda.LAUNCHES['uncertainties']}, expected 1")
     if gate_launches is None:
         gate_launches = {"nn_search": 0, "nn_search_d2": 0 if gate is None else 1,
                          "dilate": 0}
@@ -3294,6 +3297,63 @@ def solver_times(torch):
             "ptxas": ptxas_table(_build.BUILD_LOGS.get("solver", "")), "shapes": rows}
 
 
+# The uncertainty kernel's operations a correspondence (csrc/solver.cu
+# uncertainty_kernel): the transform and residual 26, the Jacobian 60, the
+# weights 7, the 21 products and sums of J^T P J 42, w r^2 and the count 4:
+# ~140 float64 operations.
+UNC_OPS_PER_ROW = 140
+
+
+def uncertainty_times(torch):
+    """The uncertainty kernel (csrc/solver.cu) beside its plain version on
+    the card at the main path's C = 1000, one problem and a batch of 32,
+    float32 and float64 coordinates, at the solve's final p (CUDA events,
+    warm): the kernel as CUDA-graph replays (its device time) and in a host
+    loop of calls, the plain version; the bound, the larger of the bytes
+    bound (each input read once, each output written once, at 3.35 TB/s)
+    and the operation bound (UNC_OPS_PER_ROW a correspondence over 34
+    TFLOP/s float64); the largest gap between the two versions' sigma and
+    Cxx, relative to each one's largest magnitude. Two launches on the same
+    inputs are bit-equal."""
+    from simpleicp_tpu_torch.models import solver
+
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).replace("torch.", "")
+        for B in (1, 32):
+            t, act = gn_inputs(torch, B, 1000, dtype, SEED + 100 + B)
+            t[0] = solver.gn_solve(*t, active=act)[0]
+            k = solver.estimate_uncertainties(*t)
+            again = solver.estimate_uncertainties(*t)
+            plain = solver.estimate_uncertainties_plain(*t)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(k[1:], again[1:]))
+                  and torch.equal(k[0].nan_to_num(), again[0].nan_to_num()),
+                  f"uncertainty kernel {tag} B={B}: two launches differ")
+            gap = [float((a.double() - b.double()).abs().max() / b.double().abs().max())
+                   for a, b in zip(k, plain)]
+            check(max(gap) <= (1e-12 if tag == "float64" else 2.0**-23),
+                  f"uncertainty kernel {tag} B={B}: differs from plain by {gap}")
+            # xm, xf, n and the mask a row; p, dw, obs_vals, obs_w, sigma and
+            # Cxx a problem
+            nbytes = B * 1000 * (9 * t[1].element_size() + 1) + B * 61 * t[1].element_size()
+            t_bytes, t_ops = nbytes / 3.35e12, UNC_OPS_PER_ROW * B * 1000 / 34e12
+            rows[f"{tag} {B} x 1000"] = {
+                "ms": graph_ms(torch, lambda: solver.estimate_uncertainties(*t), 20),
+                "host_loop_ms": cuda_ms(torch, lambda: solver.estimate_uncertainties(*t), 100),
+                "plain_ms": cuda_ms(torch, lambda: solver.estimate_uncertainties_plain(*t), 20),
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": ("operations" if t_ops >= t_bytes else "bytes")
+                + " (the kernel is latency-bound)",
+                "max_rel_gap_sigma_cxx": gap,
+            }
+    return {"kernel": "uncertainty_kernel", "route": "cuda",
+            "source": "simpleicp_tpu_torch/csrc/solver.cu",
+            "replaces": "no Pallas kernel: XLA's fusion of the JAX package's "
+                        "estimate_uncertainties (simpleicp_tpu/models/solver.py)",
+            "shapes": rows}
+
+
 def phase_times(torch, scale, gated_big, cells, dil=None):
     import numpy as np
 
@@ -3356,6 +3416,8 @@ def phase_times(torch, scale, gated_big, cells, dil=None):
           "index mode); warm L2", "kernels": kernels})
     emit({"phase": "times", "what": "the Gauss-Newton solve kernel against its plain "
           "version (B problems x C=1000, warm)", **solver_times(torch)})
+    emit({"phase": "times", "what": "the uncertainty kernel against its plain version "
+          "(B problems x C=1000 at the solve's final p, warm)", **uncertainty_times(torch)})
     emit({"phase": "times", "what": "the k-NN and the match at more shapes (float32, k=10, "
           "warm L2): the scale cell's own selection, estimate_normals' all-points shape, "
           "the k-NN under other chunk counts",
@@ -3458,10 +3520,11 @@ KERNEL_NAMES = {"match_scan": "match_transform", "match_finish": "match_transfor
 # the 100k cell (4 iterations), the Gauss-Newton loop one kernel launch an
 # iteration and each iteration a replay of the loop's CUDA graph: 252
 # kernels in the first iteration's graph, 264 in a later one's, each
-# iteration's flag read, and the eager launches around the loop. The
-# profile counts 1 652 when it runs alone and 1 629 after the other phases
-# (H100 80GB HBM3, 700 W); replayed_in_full checks the exact count.
-LAUNCHES_100K = 1640
+# iteration's flag read, the eager launches around the loop, and the
+# finish's uncertainties as one kernel launch. The profile counts 1 282
+# after the main, gated, dilate and times phases (H100 80GB HBM3, 700 W);
+# replayed_in_full checks the exact count.
+LAUNCHES_100K = 1282
 # Inputs of the loop's body a graphed registration copies into its entry's
 # static buffers: Q, normals, planarity, sel_valid, obs_vals, obs_w, the
 # planarity threshold, the noise floor and the movable cloud.

@@ -779,11 +779,19 @@ def _run_graphed(entry: loop_graph.Graphed, x: _LoopInputs, c: _Carry, cfg: IcpC
 
 def _uncertainties(c: _Carry, Q, normals, obs_vals, obs_w, gather_fn):
     """The a-posteriori (uncertainties, covariance) of a final carry, on its
-    last iteration's matches."""
-    return estimate_uncertainties(
-        c.p, gather_fn(c.m_idx), Q, normals, c.residual_mask,
+    last iteration's matches. Keeps the counters ``icp.finish`` a finish
+    of one or more problems: ``kernel`` 1 where it goes to the uncertainty
+    kernel (matches on a CUDA device, ``estimate_uncertainties``' dispatch),
+    ``plain`` 1 where it goes to the plain version."""
+    xm = gather_fn(c.m_idx)
+    out = estimate_uncertainties(
+        c.p, xm, Q, normals, c.residual_mask,
         c.dist_w, obs_vals, obs_w,
     )
+    if c.p.numel():
+        k = int(xm.is_cuda)
+        record_counters("icp.finish", {"kernel": k, "plain": 1 - k})
+    return out
 
 
 def _result_from_carry(c: _Carry, uncertainties, covariance, sel_idx,

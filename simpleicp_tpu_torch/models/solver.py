@@ -7,7 +7,9 @@
   64*eps(float64). On the card one kernel launch (``ops/solver_cuda.py``);
   ``gn_solve_plain`` is its plain version and the CPU path.
 * ``linearized_solve`` — one small-angle increment solve per iteration.
-* ``estimate_uncertainties`` — a-posteriori sigmas and covariance.
+* ``estimate_uncertainties`` — a-posteriori sigmas and covariance: on the
+  card one kernel launch (``ops/solver_cuda.py``);
+  ``estimate_uncertainties_plain`` is its plain version and the CPU path.
 * ``Parameter`` / ``RigidBodyParameters`` — the host-side (numpy) parameter
   containers of the class API.
 
@@ -165,6 +167,12 @@ def _damp(N: torch.Tensor) -> torch.Tensor:
     return N + torch.diag_embed(torch.diagonal(N, dim1=-2, dim2=-1) * 1e-9 + 1e-30)
 
 
+def _rows(t: torch.Tensor, tail=()) -> torch.Tensor:
+    """t with its leading dimensions flattened into one problem axis, as the
+    kernels of ``ops/solver_cuda.py`` take it."""
+    return t.reshape(-1, *tail).contiguous()
+
+
 def gn_solve(p0: torch.Tensor, xm: torch.Tensor, xf: torch.Tensor, n: torch.Tensor,
              mask: torch.Tensor, distance_weight: torch.Tensor,
              obs_vals: torch.Tensor, obs_w: torch.Tensor, *, n_steps: int = 24,
@@ -181,14 +189,10 @@ def gn_solve(p0: torch.Tensor, xm: torch.Tensor, xf: torch.Tensor, n: torch.Tens
         return gn_solve_plain(p0, xm, xf, n, mask, distance_weight, obs_vals, obs_w,
                               n_steps=n_steps, active=active)
     lead, C = xm.shape[:-2], xm.shape[-2]
-
-    def rows(t, tail=()):
-        return t.reshape(-1, *tail).contiguous()
-
     p, residuals, rel = solver_cuda.gn_solve_cuda(
-        rows(p0, (6,)), rows(xm, (C, 3)), rows(xf, (C, 3)), rows(n, (C, 3)),
-        rows(mask, (C,)), rows(distance_weight.expand(lead)), rows(obs_vals, (6,)),
-        rows(obs_w, (6,)), n_steps, None if active is None else rows(active))
+        _rows(p0, (6,)), _rows(xm, (C, 3)), _rows(xf, (C, 3)), _rows(n, (C, 3)),
+        _rows(mask, (C,)), _rows(distance_weight.expand(lead)), _rows(obs_vals, (6,)),
+        _rows(obs_w, (6,)), n_steps, None if active is None else _rows(active))
     return p.view(*lead, 6), residuals.view(*lead, C), rel.view(lead)
 
 
@@ -306,6 +310,27 @@ def estimate_uncertainties(p: torch.Tensor, xm: torch.Tensor, xf: torch.Tensor,
                            n: torch.Tensor, mask: torch.Tensor,
                            distance_weight: torch.Tensor, obs_vals: torch.Tensor,
                            obs_w: torch.Tensor):
+    """A-posteriori uncertainties: on a CUDA tensor one launch of the kernel
+    in ``csrc/solver.cu``, elsewhere ``estimate_uncertainties_plain``.
+    Arguments and results as ``estimate_uncertainties_plain``'s; on the card
+    every tensor but the mask is in xm's dtype. The kernel sums J^T P J and
+    vPv in another order than the plain version's products, so the two
+    agree to rounding, not bit for bit."""
+    if not xm.is_cuda:
+        return estimate_uncertainties_plain(p, xm, xf, n, mask, distance_weight, obs_vals,
+                                            obs_w)
+    lead, C = xm.shape[:-2], xm.shape[-2]
+    sigma, cxx = solver_cuda.uncertainties_cuda(
+        _rows(p, (6,)), _rows(xm, (C, 3)), _rows(xf, (C, 3)), _rows(n, (C, 3)),
+        _rows(mask, (C,)), _rows(distance_weight.expand(lead)), _rows(obs_vals, (6,)),
+        _rows(obs_w, (6,)))
+    return sigma.view(*lead, 6), cxx.view(*lead, 6, 6)
+
+
+def estimate_uncertainties_plain(p: torch.Tensor, xm: torch.Tensor, xf: torch.Tensor,
+                                 n: torch.Tensor, mask: torch.Tensor,
+                                 distance_weight: torch.Tensor, obs_vals: torch.Tensor,
+                                 obs_w: torch.Tensor):
     """A-posteriori standard deviations of the varying parameters, with the
     weight multipliers (not their squares) as the weight matrix P:
 
@@ -315,7 +340,8 @@ def estimate_uncertainties(p: torch.Tensor, xm: torch.Tensor, xf: torch.Tensor,
 
     Shapes as in ``gn_solve``. Returns (sigma, Cxx): (..., 6) uncertainties
     with NaN at frozen parameters, and the (..., 6, 6) covariance with
-    frozen rows/columns zeroed.
+    frozen rows/columns zeroed. Plain PyTorch operations (the kernel's plain
+    version; any device).
     """
     dtype = xm.dtype
     xm64, xf64, n64 = xm.to(F64), xf.to(F64), n.to(F64)

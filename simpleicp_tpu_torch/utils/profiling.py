@@ -11,8 +11,9 @@
     the only switch. The registration's spans are named in ``SPANS``;
   * ``record_counters(name, values)``: one call's counts of a stage (the
     dilate gate's band, kept refs, sweeps and plan; the loop's iterations
-    by how they ran, ``icp.loop_graph``), kept whether or not a profiler
-    records, with the time they were kept, for
+    by how they ran, ``icp.loop_graph``; whether the finish's uncertainties
+    ran as the kernel or the plain version, ``icp.finish``), kept whether
+    or not a profiler records, with the time they were kept, for
     ``recorded_counters``;
   * ``trace(logdir)``: a context manager around ``torch.profiler`` (the
     host's operators, and the card's kernels, copies and fills where a card

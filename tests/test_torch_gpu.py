@@ -368,13 +368,25 @@ def test_icp_register_on_the_card(cuda):
     g, gc = run(cuda)
     assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations), "knn_search": 1,
                                  "nn_search": 0, "nn_search_d2": 0}
-    # one solve kernel launch per iteration: the Gauss-Newton loop on the card
-    assert solver_cuda.LAUNCHES == {"gn_solve": int(g.n_iterations)}
+    # one solve kernel launch per iteration: the Gauss-Newton loop on the
+    # card; one uncertainty kernel launch: the finish
+    assert solver_cuda.LAUNCHES == {"gn_solve": int(g.n_iterations), "uncertainties": 1}
     c, cc = run("cpu")
     assert int(g.n_iterations) == int(c.n_iterations)
     assert torch.equal(g.sel_idx.cpu(), c.sel_idx)
     assert torch.equal(gc.m_idx.cpu(), cc.m_idx)
     assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
+    _close_uncertainties(g, c)
+
+
+def _close_uncertainties(g, c, pairs=...):
+    """The card's uncertainties and covariance (of ``pairs`` of a batch)
+    within the 1e-7 that test_torch_icp.py holds the CPU's to against the
+    JAX package."""
+    sg, sc = g.uncertainties.cpu()[pairs], c.uncertainties[pairs]
+    assert float((sg - sc).abs().max()) <= 1e-7
+    cg, cc = g.covariance.cpu()[pairs], c.covariance[pairs]
+    assert float((cg - cc).abs().max()) <= 1e-7 * float(cc.abs().max())
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -834,11 +846,13 @@ def test_icp_register_batch_on_the_card(cuda, gated):
     assert knn_cuda.LAUNCHES == {"match_transform": int(g.n_iterations.max()),
                                  "knn_search": 1, "nn_search": 0,
                                  "nn_search_d2": int(gated)}
-    assert solver_cuda.LAUNCHES == {"gn_solve": int(g.n_iterations.max())}
+    assert solver_cuda.LAUNCHES == {"gn_solve": int(g.n_iterations.max()), "uncertainties": 1}
     c = run("cpu")
     for f in ("n_iterations", "error_code", "converged", "sel_idx", "sel_valid", "iter_midx"):
         assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
     assert float((g.H.cpu() - c.H).abs().max()) <= 1e-9
+    # gated, pair 1 has no iteration and no matches to weigh
+    _close_uncertainties(g, c, [0, 2] if gated else ...)
     if gated:
         assert g.error_code.tolist() == [0, 1, 0] and int(g.n_iterations[1]) == 0
 
@@ -1250,7 +1264,7 @@ def test_gn_solve_kernel(cuda, dtype, case):
     t, act = _gn_tensors(args, active, dtype, cuda)
     solver_cuda.reset_launch_counts()
     p, r, rel = solver.gn_solve(*t, n_steps=steps, active=act)
-    assert solver_cuda.LAUNCHES == {"gn_solve": 1}
+    assert solver_cuda.LAUNCHES == {"gn_solve": 1, "uncertainties": 0}
     pp, rp, relp = solver.gn_solve_plain(*t, n_steps=steps, active=act)
     torch.cuda.synchronize()
     tol = 1e-12 if dtype == torch.float64 else 2.0**-23
@@ -1288,3 +1302,122 @@ def test_gn_solve_kernel_is_deterministic(cuda, dtype):
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------------ uncertainty kernel
+
+F64_EPS = torch.finfo(torch.float64).eps
+
+
+def _uncertainty_case(B, C, obs, rng):
+    """estimate_uncertainties' arguments (numpy, float64) for B problems of
+    C correspondences at a final p near each problem's motion: 5 % of the
+    rows rejected (none at C = 6, where every row is needed), and with 32
+    problems one whose rows are all rejected; observations none, weighted
+    (alpha1 and tx at weight 50) or alpha3 frozen at its value."""
+    motion = rng.uniform([-0.03] * 3 + [-0.05] * 3, [0.03] * 3 + [0.05] * 3, (B, 6))
+    xm, xf, n = _gn_surface(rng, B, C, motion)
+    p = motion + rng.normal(0, 1e-4, (B, 6))
+    mask = rng.random((B, C)) > 0.05 if C > 6 else np.ones((B, C), dtype=bool)
+    if B == 32:
+        mask[1] = False
+    dw = rng.uniform(0.5, 2.0, B)
+    vals, w = np.zeros((B, 6)), np.zeros((B, 6))
+    if obs == "weighted":
+        vals = motion + rng.normal(0, 0.01, (B, 6))
+        w[:, [0, 3]] = 50.0
+    if obs == "frozen":
+        vals[:, 2] = p[:, 2]
+        w[:, 2] = np.inf
+    return [p, xm, xf, n, mask, dw, vals, w]
+
+
+def _condition(args):
+    """The condition number of each problem's damped, reduced N, as the
+    plain version builds it (numpy, float64)."""
+    import numpy.linalg as la
+
+    from simpleicp_tpu_torch.models import solver
+
+    p, xm, _, n, mask, dw, _, w = (torch.as_tensor(a) for a in args)
+    J = solver.residual_jacobian(p, xm, n)
+    N = J.mT @ (J * torch.where(mask, dw[:, None], 0.0)[..., None])
+    vary = torch.isfinite(w)
+    N = N + torch.diag_embed(torch.where(vary & (w > 0), w, 0.0))
+    vf = vary.double()
+    N = solver._damp(N * vf[:, :, None] * vf[:, None, :] + torch.diag_embed(1.0 - vf))
+    return la.cond(N.numpy())
+
+
+def _ulp32(x):
+    x = x.abs().float()
+    return (torch.nextafter(x, torch.full_like(x, float("inf"))) - x).double()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("C", [6, 129, 1000])
+@pytest.mark.parametrize("obs", ["none", "weighted", "frozen"])
+def test_uncertainty_kernel(cuda, dtype, B, C, obs):
+    """The uncertainty kernel against the plain estimate_uncertainties on
+    the same card tensors, one launch. NaN at the same places and frozen
+    rows and columns of Cxx zero in both. The kernel sums J^T P J and vPv in
+    another order, and an inverse amplifies that by the condition number of
+    N: in float64, sigma within 16 eps cond(N) of the plain one's and Cxx
+    within 16 eps cond(N) of its largest entry (1e-12 at cond(N) <= 280;
+    C = 6 rows give cond(N) up to ~1e6); in float32 within that plus one
+    float32 ulp, both rounding float64 numbers. A problem with no valid row
+    gives the plain version's bits."""
+    from simpleicp_tpu_torch.models import solver
+    from simpleicp_tpu_torch.ops import solver_cuda
+
+    args = _uncertainty_case(B, C, obs, np.random.default_rng(43 + C))
+    t, _ = _gn_tensors(args, None, dtype, cuda)
+    solver_cuda.reset_launch_counts()
+    sig, cxx = solver.estimate_uncertainties(*t)
+    assert solver_cuda.LAUNCHES == {"gn_solve": 0, "uncertainties": 1}
+    sig_p, cxx_p = solver.estimate_uncertainties_plain(*t)
+    torch.cuda.synchronize()
+    for got, want in ((sig, sig_p), (cxx, cxx_p)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+    frozen = ~torch.isfinite(t[7])
+    assert bool(torch.isnan(sig[frozen]).all())
+    for c in (cxx, cxx_p):
+        assert bool((c.transpose(-1, -2)[frozen] == 0).all() and (c[frozen] == 0).all())
+
+    sig, cxx, sig_p, cxx_p = (a.cpu().double() for a in (sig, cxx, sig_p, cxx_p))
+    solved = torch.ones(B, dtype=torch.bool)
+    if B == 32:  # no valid row: the same arithmetic on zeros
+        solved[1] = False
+        assert torch.equal(sig[1].nan_to_num(), sig_p[1].nan_to_num())
+        assert torch.equal(cxx[1].nan_to_num(), cxx_p[1].nan_to_num())
+    tol = 16 * F64_EPS * torch.as_tensor(_condition(args))[solved]
+    sig, cxx, sig_p, cxx_p = (a[solved] for a in (sig, cxx, sig_p, cxx_p))
+    vary = ~frozen.cpu()[solved]
+    assert bool(torch.isfinite(sig_p[vary]).all() and torch.isfinite(cxx_p).all())
+    err_s = (sig - sig_p).abs().nan_to_num()
+    err_c = (cxx - cxx_p).abs().flatten(1).amax(1)
+    lim_s = tol[:, None] * sig_p.abs().nan_to_num()
+    lim_c = tol * cxx_p.abs().flatten(1).amax(1)
+    if dtype == torch.float32:
+        lim_s = lim_s + _ulp32(sig_p.nan_to_num())
+        err_c = ((cxx - cxx_p).abs() - _ulp32(cxx_p)).flatten(1).amax(1)
+    assert bool((err_s <= lim_s).all()), (err_s / lim_s.clamp_min(1e-300)).max()
+    assert bool((err_c <= lim_c).all()), (err_c / lim_c).max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_uncertainty_kernel_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same bits (the solve
+    kernel's fixed reduction order): sharded ranks finish alike."""
+    from simpleicp_tpu_torch.models import solver
+
+    args = _uncertainty_case(32, 1000, "weighted", np.random.default_rng(44))
+    t, _ = _gn_tensors(args, None, dtype, cuda)
+    a = solver.estimate_uncertainties(*t)
+    b = solver.estimate_uncertainties(*t)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.nan_to_num(), y.nan_to_num())
+        assert torch.equal(torch.isnan(x), torch.isnan(y))

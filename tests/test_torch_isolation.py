@@ -109,6 +109,7 @@ def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
     monkeypatch.setattr(knn_cuda, "nn_d2_cuda", boom)
     monkeypatch.setattr(dilate_cuda, "dilate_cuda", boom)
     monkeypatch.setattr(solver_cuda, "gn_solve_cuda", boom)
+    monkeypatch.setattr(solver_cuda, "uncertainties_cuda", boom)
     X = np.random.default_rng(1).uniform(-1, 1, (400, 3)) * [1, 1, 0.1]
     res = icp_register(X, X + 0.01, IcpConfig(correspondences=30), device="cpu")
     assert int(res.error_code) == 0
@@ -121,6 +122,32 @@ def test_cpu_tensor_never_reaches_a_kernel(monkeypatch):
                                               gate_method="dilate"),
                        device="cpu")
     assert int(res.error_code) == 0
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_cpu_tensor_never_reaches_the_uncertainty_kernel(monkeypatch, lead):
+    """The finish's uncertainties on CPU tensors, with and without a pair
+    axis and through the batch: the plain version, never the wrapper."""
+    from simpleicp_tpu_torch import icp_register_batch
+    from simpleicp_tpu_torch.models import solver
+    from simpleicp_tpu_torch.ops import solver_cuda
+
+    def boom(*a, **k):
+        raise AssertionError("uncertainties_cuda called for a CPU tensor")
+
+    monkeypatch.setattr(solver_cuda, "uncertainties_cuda", boom)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.normal(size=(*lead, 20, 3)))
+    n = torch.nn.functional.normalize(torch.as_tensor(rng.normal(size=(*lead, 20, 3))), dim=-1)
+    p = torch.zeros((*lead, 6), dtype=torch.float64)
+    sig, cov = solver.estimate_uncertainties(
+        p, x, x + 0.01, n, torch.ones((*lead, 20), dtype=torch.bool),
+        torch.ones(lead, dtype=torch.float64), p, p)
+    assert sig.shape == (*lead, 6) and cov.shape == (*lead, 6, 6)
+    if lead:
+        X = rng.uniform(-1, 1, (3, 400, 3)) * [1, 1, 0.1]
+        res = icp_register_batch(X, X + 0.01, IcpConfig(correspondences=30), device="cpu")
+        assert res.uncertainties.shape == (3, 6)
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -141,6 +168,9 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         solver_cuda.gn_solve_cuda(p, x, x, x, torch.ones((1, 4), dtype=torch.bool),
                                   torch.ones(1), p, p, 24)
+    with pytest.raises(ValueError, match="CUDA"):
+        solver_cuda.uncertainties_cuda(p, x, x, x, torch.ones((1, 4), dtype=torch.bool),
+                                       torch.ones(1), p, p)
 
 
 def _xyz_pair(tmp_path):

@@ -1,7 +1,8 @@
-"""The Gauss-Newton kernel's wrapper (``ops/solver_cuda.py``) on the CPU:
-the block size it takes from C, and the inputs it refuses before any
-library is built. ``test_torch_isolation.py`` holds that a CPU tensor never
-reaches it; the kernel itself runs in ``test_torch_gpu.py``."""
+"""The wrappers of the Gauss-Newton and uncertainty kernels
+(``ops/solver_cuda.py``) on the CPU: the block size they take from C, and
+the inputs they refuse before any library is built.
+``test_torch_isolation.py`` holds that a CPU tensor never reaches them; the
+kernels themselves run in ``test_torch_gpu.py``."""
 
 import pytest
 import torch
@@ -63,3 +64,33 @@ def test_wrapper_refuses(case, monkeypatch):
     err, change = BAD[case]
     with pytest.raises(err):
         solver_cuda.gn_solve_cuda(**{**_inputs(), **change})
+
+
+def _uncertainty_inputs():
+    kw = _inputs()
+    return dict(p=kw.pop("p0"), **{k: v for k, v in kw.items() if k not in ("n_steps", "active")})
+
+
+BAD_UNCERTAINTIES = {
+    **{case: (err, change) for case, (err, change) in BAD.items()
+       if not case.startswith(("p0", "active", "negative n_steps"))},
+    "p float32 beside float64": (TypeError, dict(p=torch.zeros((2, 6), dtype=torch.float32))),
+    "p of 3 parameters": (ValueError, dict(p=torch.zeros((2, 3), dtype=torch.float64))),
+    "p not contiguous": (ValueError, dict(p=_strided(torch.zeros((2, 6), dtype=torch.float64)))),
+    "distance_weight float32": (TypeError,
+                                dict(distance_weight=torch.ones(2, dtype=torch.float32))),
+    "a CPU tensor": (ValueError, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_UNCERTAINTIES))
+def test_uncertainty_wrapper_refuses(case, monkeypatch):
+    """Each bad input raises before any library is asked for; valid CPU
+    tensors are refused for their device, with the solve wrapper's text."""
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(solver_cuda, "_library", no_build)
+    err, change = BAD_UNCERTAINTIES[case]
+    with pytest.raises(err, match="CUDA" if case == "a CPU tensor" else None):
+        solver_cuda.uncertainties_cuda(**{**_uncertainty_inputs(), **change})

@@ -137,3 +137,29 @@ def test_stage_timer_opens_a_span_and_waits_for_the_card(monkeypatch):
             torch.ones(3).sum()
     assert [e.name for e in prof.events() if e.name == "load"] == ["load"]
     assert len(synced) == 1 and timer.timings["load"] > 0
+
+
+FINISH_CASES = [*CASES, "chunked K=2", "prepared"]
+
+
+@pytest.mark.parametrize("case", FINISH_CASES)
+def test_finish_counter_once_a_call_plain_on_the_cpu(case):
+    """``icp.finish`` keeps one set of counts a registration, and one a
+    batch call: on the CPU the plain version ran, not the kernel."""
+    from simpleicp_tpu_torch import prepare_fixed
+
+    profiling.clear_recorded_counters()
+    if case == "chunked K=2":
+        cfg = IcpConfig(correspondences=200, dispatch="chunked", chunk_iterations=2)
+        res = icp_register(*_pair(700), cfg, device="cpu", dtype=torch.float64)
+    elif case == "prepared":
+        X_fix, X_mov = _pair(700)
+        cfg = IcpConfig(correspondences=200)
+        prep = prepare_fixed(X_fix, cfg, device="cpu", dtype=torch.float64)
+        res = icp_register(X_fix, X_mov, cfg, fixed_prep=prep, device="cpu",
+                           dtype=torch.float64)
+    else:
+        res = _register(case)
+    assert int(res.error_code.max()) == 0 and int(res.n_iterations.max()) >= 2
+    kept = [v for _, _, v in profiling.recorded_counters("icp.finish")]
+    assert kept == [{"kernel": 0, "plain": 1}]
